@@ -5,19 +5,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Checks that CUDA is available and prints the card's name and power
    limit.
-2. Builds both hand-written kernels (toycluster_tpu_torch/csrc/*.cu) with
-   nvcc for sm_90a and prints the build times and nvcc's register report.
+2. Builds the five hand-written kernels (toycluster_tpu_torch/csrc/*.cu)
+   with nvcc for sm_90a, one nvcc process each, all started together,
+   and prints the build time and nvcc's register report.
 3. Holds each kernel against its plain PyTorch version on the card on a
-   1e5-gas synthetic cusp (toycluster_tpu_torch/ops/cusp.py; stream_wvt:
-   wc6 and m4, with and without the displacement; stream_curl: wc6 and
-   m4), with the tolerances of the CPU tests.
+   1e5-gas synthetic cusp (toycluster_tpu_torch/ops/cusp.py), with the
+   tolerances of the CPU tests: stream_wvt (wc6 and m4, with and without
+   the displacement), stream_curl (wc6 and m4, superblock and block
+   lists), solve_density, wvt_displacement and fused_wvt (wc6 and m4,
+   block and superblock lists; fused_wvt with and without its distance
+   bounds, which must give bit-identical results).
 4. Drives the CLI main path, ``toycluster_tpu_torch.cli.main``, on the
    repository's cluster.par (Ntotal 1e6, WC6, B field on) with
-   device=cuda, with every launch counter set to 0 just before; then
-   checks that every kernel was launched, the neighbour contract
-   fraction >= 0.999, that err_mean fell, and reads the snapshot back
-   (1e6 particles, finite, rho/u/bfld nonzero on the gas).  Prints the
-   per-stage wall times and the WVT particle updates per second.
+   device=cuda twice, with every launch counter set to 0 just before
+   each run: once on the stream engine (the default) and once with
+   engine=classed.  After each run it checks that the engine's kernels
+   were launched (stream: stream_wvt and stream_curl; classed:
+   solve_density, wvt_displacement, fused_wvt and block-list
+   stream_curl, and no stream_wvt), that the neighbour contract fraction
+   is >= 0.999 and err_mean fell, and reads the snapshot back (1e6
+   particles, finite, rho/u/bfld nonzero on the gas).  Prints the
+   per-stage wall times and the WVT particle updates per second of each
+   run.
 5. Holds each kernel against its plain version again on the inputs of
    its first main-path call, and times both there with CUDA events.
 
@@ -34,17 +43,23 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "toycluster_tpu_torch"
-# (name, source, the TPU kernel it replaces)
+PALLAS = "toycluster_tpu/ops/pallas_pair.py"
+# (record name, kernel library, TPU kernel it replaces)
 KERNELS = (
-    ("stream_wvt", f"{PKG}/csrc/stream_wvt.cu",
-     "toycluster_tpu/ops/pallas_pair.py:1261"),
-    ("stream_curl", f"{PKG}/csrc/stream_curl.cu",
-     "toycluster_tpu/ops/pallas_pair.py:1953"),
+    ("stream_wvt", "stream_wvt", f"{PALLAS}:1261"),
+    ("stream_curl", "stream_curl", f"{PALLAS}:1953"),
+    ("stream_curl_blocks", "stream_curl", f"{PALLAS}:1953"),
+    ("solve_density", "solve_density", f"{PALLAS}:104"),
+    ("wvt_displacement", "wvt_displacement", f"{PALLAS}:637"),
+    ("fused_wvt", "fused_wvt", f"{PALLAS}:230"),
 )
+LIBS = ("stream_wvt", "stream_curl", "solve_density", "wvt_displacement",
+        "fused_wvt")
 
 
 def fail(msg):
@@ -58,7 +73,14 @@ def say(msg):
 
 # ------------------------------------------------------------ comparisons
 
-def compare_wvt(torch, got, ref, valid, desnngb, do_disp):
+def unpack(out, do_disp):
+    """A plain count-class output (S, 128, 5 or 8) as (rho, h, vf, wk,
+    done, delta)."""
+    return (out[..., 0], out[..., 1], out[..., 2], out[..., 3],
+            out[..., 4] > 0.5, out[..., 5:8] if do_disp else None)
+
+
+def compare_wvt(torch, got, ref, valid, desnngb, do_disp, name="stream_wvt"):
     """The CPU tests' tolerances: h/rho rtol 2e-3 on >= 98% of done
     lanes, |wkNgb - DESNNGB| < 0.05 + 1e-3 on done lanes (or no more
     than the plain version's own deviation: a speculatively accepted
@@ -70,27 +92,34 @@ def compare_wvt(torch, got, ref, valid, desnngb, do_disp):
     v = valid.reshape(g_h.shape)
     both = v & g_done & r_done
     if int(both.sum()) < 0.97 * int((v & r_done).sum()):
-        fail(f"stream_wvt: kernel done on {int((v & g_done).sum())} lanes,"
+        fail(f"{name}: kernel done on {int((v & g_done).sum())} lanes,"
              f" plain on {int((v & r_done).sum())}")
     ok = (torch.isclose(g_h[both], r_h[both], rtol=2e-3, atol=0)
           & torch.isclose(g_rho[both], r_rho[both], rtol=2e-3, atol=0))
     if float(ok.float().mean()) <= 0.98:
-        fail(f"stream_wvt: h/rho differ on {int((~ok).sum())} lanes")
+        fail(f"{name}: h/rho differ on {int((~ok).sum())} lanes")
     dev = float((g_wk[both] - desnngb).abs().max())
     dev_plain = float((r_wk[both] - desnngb).abs().max())
     say(f"  done lanes {int(both.sum())}/{int(v.sum())}; max |wkNgb - "
         f"DESNNGB| kernel {dev:.4g}, plain {dev_plain:.4g}")
     if dev >= max(0.05, dev_plain) + 1e-3:
-        fail(f"stream_wvt: |wkNgb - DESNNGB| = {dev} on a done lane "
+        fail(f"{name}: |wkNgb - DESNNGB| = {dev} on a done lane "
              f"(plain version: {dev_plain})")
     if do_disp:
-        a, b = r_d[v], g_d[v]
-        scale = float(a.abs().max())
-        bad = (b - a).abs() > 1e-6 * scale + 2e-4 * a.abs()
-        if bool(bad.any()):
-            fail(f"stream_wvt: delta differs on {int(bad.sum())} values, "
-                 f"max abs {float((b - a).abs().max())} (scale {scale})")
+        compare_disp(torch, g_d, r_d, v, name)
     return float((g_wk[both] - r_wk[both]).abs().max())
+
+
+def compare_disp(torch, got, ref, valid, name):
+    """rtol 2e-4, atol 1e-6 max|delta|.  Returns max |delta_kernel -
+    delta_plain|."""
+    a, b = ref[valid], got[valid]
+    scale = float(a.abs().max())
+    bad = (b - a).abs() > 1e-6 * scale + 2e-4 * a.abs()
+    if bool(bad.any()):
+        fail(f"{name}: delta differs on {int(bad.sum())} values, "
+             f"max abs {float((b - a).abs().max())} (scale {scale})")
+    return float((b - a).abs().max())
 
 
 def compare_curl(torch, got, ref, valid):
@@ -121,96 +150,121 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def check_kernels_on_cusp(torch, sp, device):
+# -------------------------------------------------- kernel vs plain checks
+
+def check_wvt(torch, sp, args, kw, valid):
+    got = sp.stream_wvt(*args, **kw)
+    torch.cuda.synchronize()
+    ref = sp._stream_wvt_reference(*args, n_sweeps=sp.N_SWEEPS, **kw)
+    err = compare_wvt(torch, got, ref, valid, kw["desnngb"],
+                      kw.get("do_disp", True))
+    return err, event_ms(torch, lambda: sp.stream_wvt(*args, **kw), 5), \
+        event_ms(torch, lambda: sp._stream_wvt_reference(
+            *args, n_sweeps=sp.N_SWEEPS, **kw), 1)
+
+
+def check_curl(torch, sp, args, kw, valid):
+    got = sp.stream_curl(*args, **kw)
+    torch.cuda.synchronize()
+    ref = sp._stream_curl_reference(*args, **kw)
+    err = compare_curl(torch, got, ref, valid)
+    return err, event_ms(torch, lambda: sp.stream_curl(*args, **kw), 5), \
+        event_ms(torch, lambda: sp._stream_curl_reference(*args, **kw), 1)
+
+
+def check_solve(torch, cp, args, kw, valid):
+    kw = dict(kw)
+    n_sweeps = kw.pop("n_sweeps", cp.SOLVE_SWEEPS)
+    got = cp.solve_density(*args, n_sweeps=n_sweeps, **kw)
+    torch.cuda.synchronize()
+    ref = cp._solve_density_reference(*args, n_sweeps=n_sweeps, **kw)
+    err = compare_wvt(torch, got, unpack(ref, False), valid, kw["desnngb"],
+                      False, "solve_density")
+    return err, event_ms(torch, lambda: cp.solve_density(
+        *args, n_sweeps=n_sweeps, **kw), 5), event_ms(
+        torch, lambda: cp._solve_density_reference(
+            *args, n_sweeps=n_sweeps, **kw), 1)
+
+
+def check_disp(torch, cp, args, kw, valid):
+    got = cp.wvt_displacement(*args, **kw)
+    torch.cuda.synchronize()
+    ref = cp._wvt_displacement_reference(*args, **kw)
+    err = compare_disp(torch, got, ref, valid, "wvt_displacement")
+    return err, event_ms(torch, lambda: cp.wvt_displacement(*args, **kw),
+                         5), event_ms(
+        torch, lambda: cp._wvt_displacement_reference(*args, **kw), 1)
+
+
+def check_fused(torch, cp, args, kw, valid):
+    """Kernel vs plain with the caller's bounds, and bit-identical
+    kernel outputs with and without them."""
+    kw = dict(kw)
+    n_sweeps = kw.pop("n_sweeps", cp.FUSED_SWEEPS)
+    full = dict(kw, n_sweeps=n_sweeps, do_disp=kw.get("do_disp", True),
+                sb_mode=kw.get("sb_mode", False), gdist=kw.get("gdist"),
+                dkeep=kw.get("dkeep"))
+    got = cp.fused_wvt(*args, **full)
+    unbounded = cp.fused_wvt(*args, **dict(full, gdist=None, dkeep=None))
+    torch.cuda.synchronize()
+    for a, b in zip(got, unbounded):
+        if not torch.equal(a, b):
+            fail("fused_wvt: the distance bounds changed the result")
+    ref = cp._fused_wvt_reference(*args, **full)
+    err = compare_wvt(torch, got, unpack(ref, full["do_disp"]), valid,
+                      kw["desnngb"], full["do_disp"], "fused_wvt")
+    return err, event_ms(torch, lambda: cp.fused_wvt(*args, **full), 5), \
+        event_ms(torch, lambda: cp._fused_wvt_reference(*args, **full), 1)
+
+
+def check_kernels_on_cusp(torch, sp, cp, device):
     from toycluster_tpu_torch.ops import cusp
     n = 100_000
     for kernel in ("wc6", "m4"):
         for do_disp in (True, False):
             args, kw, valid = cusp.wvt_inputs(kernel, do_disp, n,
                                               device=device)
-            got = sp.stream_wvt(*args, **kw)
-            torch.cuda.synchronize()
-            ref = sp._stream_wvt_reference(*args, n_sweeps=sp.N_SWEEPS, **kw)
-            err = compare_wvt(torch, got, ref, valid, kw["desnngb"], do_disp)
-            k_ms = event_ms(torch, lambda: sp.stream_wvt(*args, **kw), 5)
-            p_ms = event_ms(torch, lambda: sp._stream_wvt_reference(
-                *args, n_sweeps=sp.N_SWEEPS, **kw), 1)
+            err, k_ms, p_ms = check_wvt(torch, sp, args, kw, valid)
             say(f"cusp 1e5 stream_wvt kernel={kernel} do_disp={do_disp}: "
                 f"rows={args[0].shape[0]} width={args[1].shape[1]} "
                 f"max|dwk|={err:.3g} kernel_ms={k_ms:.3f} "
                 f"plain_ms={p_ms:.3f}")
-        args, kw, valid = cusp.curl_inputs(kernel, n, device=device)
-        got = sp.stream_curl(*args, **kw)
-        torch.cuda.synchronize()
-        ref = sp._stream_curl_reference(*args, **kw)
-        err = compare_curl(torch, got, ref, valid)
-        k_ms = event_ms(torch, lambda: sp.stream_curl(*args, **kw), 5)
-        p_ms = event_ms(torch, lambda: sp._stream_curl_reference(*args, **kw),
-                        1)
-        say(f"cusp 1e5 stream_curl kernel={kernel}: max|dB|/max|B|="
-            f"{err:.3g} kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f}")
+        for sb_mode in (True, False):
+            args, kw, valid = cusp.curl_inputs(kernel, n, device=device,
+                                               sb_mode=sb_mode)
+            err, k_ms, p_ms = check_curl(torch, sp, args, kw, valid)
+            say(f"cusp 1e5 stream_curl kernel={kernel} sb_mode={sb_mode}: "
+                f"width={args[1].shape[1]} max|dB|/max|B|={err:.3g} "
+                f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f}")
+        for sb_mode in (False, True):
+            c = cusp.class_inputs(kernel, n, sb_mode, device=device)
+            v = c["valid"]
+            kw = dict(kernel=kernel, desnngb=c["desnngb"], sb_mode=sb_mode)
+            tag = (f"kernel={kernel} sb_mode={sb_mode} rows="
+                   f"{c['cand'].shape[0]} width={c['cand'].shape[1]}")
+            err, k_ms, p_ms = check_solve(torch, cp, (
+                c["pos_t"], c["valid_t"], c["cand"], c["pos_t"], c["h0"],
+                c["cap"], 1.0, cusp.BOX), kw, v)
+            say(f"cusp 1e5 solve_density {tag}: max|dwk|={err:.3g} "
+                f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f}")
+            err, k_ms, p_ms = check_disp(torch, cp, (
+                c["pos_t"], c["valid_t"], c["h_b3"], c["cand"], c["pos_t"],
+                c["hm"], 1.0, cusp.BOX), dict(kernel=kernel,
+                                              sb_mode=sb_mode), v)
+            say(f"cusp 1e5 wvt_displacement {tag}: max|ddelta|={err:.3g} "
+                f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f}")
+            err, k_ms, p_ms = check_fused(torch, cp, (
+                c["pos_t"], c["hm_blocks"], c["cand"], c["cnt"], c["pos_t"],
+                c["h0"], c["cap"], c["hm"], 1.0, cusp.BOX),
+                dict(kw, gdist=c["gdist"], dkeep=c["dkeep"]), v)
+            say(f"cusp 1e5 fused_wvt {tag}: bounds bit-identical, "
+                f"max|dwk|={err:.3g} kernel_ms={k_ms:.3f} "
+                f"plain_ms={p_ms:.3f}")
 
 
 # --------------------------------------------------------------- main path
 
-def run_main_path(torch, sp, tmp):
-    """The CLI main path on cuda, with the first stream_wvt and
-    stream_curl call's inputs recorded for step 5."""
-    from toycluster_tpu_torch import cli
-    from toycluster_tpu_torch.models import bfield, sph, wvt
-    from toycluster_tpu_torch.utils import logging as tlog
-
-    recorded = {}
-
-    def recorder(name, fn):
-        def call(*args, **kw):
-            out = fn(*args, **kw)
-            if name not in recorded and kw.get("do_disp", True):
-                recorded[name] = (args, kw)
-            return out
-        return call
-
-    wvt.stream_wvt = recorder("stream_wvt", sp.stream_wvt)
-    bfield.stream_curl = recorder("stream_curl", sp.stream_curl)
-    par = ROOT / PKG / "data" / "cluster.par"
-    out = Path(tmp) / "IC"
-    tlog.METRICS.clear()
-    sp.stream_wvt.launches = 0
-    sp.stream_curl.launches = 0
-    t0 = time.perf_counter()
-    rc = cli.main([str(par), f"output_file={out}", "device=cuda"])
-    wall = time.perf_counter() - t0
-    launches = {"stream_wvt": sp.stream_wvt.launches,
-                "stream_curl": sp.stream_curl.launches}
-    wvt.stream_wvt = sp.stream_wvt
-    bfield.stream_curl = sp.stream_curl
-    if rc != 0:
-        fail(f"cli.main returned {rc}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"the main path launched {name} no time")
-    say(f"main path: wall {wall:.3f} s, launches {launches}")
-
-    prev = 0.0
-    for rec in tlog.METRICS:
-        if rec["stage"].startswith("wvt") and rec["stage"] != "wvt_done":
-            continue
-        say(f"stage {rec['stage']:<16} ends at {rec['t']:9.3f} s "
-            f"(+{rec['t'] - prev:.3f} s)")
-        prev = rec["t"]
-    errs = [r["err_mean"] for r in tlog.METRICS if r["stage"] == "wvt"]
-    done = [r for r in tlog.METRICS if r["stage"] == "wvt_done"]
-    say(f"wvt err_mean trajectory ({len(errs)} iterations): {errs}")
-    if len(errs) < 2 or not errs[-1] < 0.6 * errs[0]:
-        fail(f"err_mean did not fall: {errs}")
-    say(f"wvt: {done[0]['iterations']} iterations in "
-        f"{done[0]['seconds']:.3f} s = "
-        f"{done[0]['particle_updates_per_s']:.6g} particle updates/s")
-    frac = sph.last_contract_frac
-    say(f"neighbour contract fraction {frac}")
-    if not frac >= 0.999:
-        fail(f"contract fraction {frac} < 0.999")
-
+def check_snapshot(out):
     from toycluster_tpu_torch.io.gadget import read_snapshot
     import numpy as np
     snap = read_snapshot(str(out))
@@ -223,44 +277,141 @@ def run_main_path(torch, sp, tmp):
     for k in ("rho", "u", "hsml"):
         if not (snap[k][:n_gas] > 0).all():
             fail(f"snapshot block {k} has non-positive gas values")
-    if not (np.abs(snap["bfld"]).sum(axis=1) > 0).mean() > 0.99:
+    if not (np.abs(snap["bfld"][:n_gas]).sum(axis=1) > 0).mean() > 0.99:
         fail("bfld is zero on more than 1% of the gas")
     say(f"snapshot: {snap['pos'].shape[0]} particles, {n_gas} gas, finite")
+
+
+def run_main_path(torch, sp, cp, tmp, engine):
+    """The CLI main path on cuda with ``engine``: every launch counter
+    set to 0 just before, the first call's inputs of each kernel
+    recorded for step 5 (the stream engine's stand-alone density solve,
+    do_disp=False, is not recorded), and block-list stream_curl launches
+    counted apart.  Returns (launches, recorded)."""
+    from toycluster_tpu_torch import cli
+    from toycluster_tpu_torch.models import bfield, sph, wvt
+    from toycluster_tpu_torch.utils import logging as tlog
+
+    recorded, by_name = {}, Counter()
+
+    def recorder(fn, name_of):
+        def call(*args, **kw):
+            n0 = fn.launches
+            out = fn(*args, **kw)
+            name = name_of(kw)
+            if name is not None:
+                by_name[name] += fn.launches - n0
+                recorded.setdefault(name, (args, kw))
+            return out
+        return call
+
+    def curl_name(kw):
+        return "stream_curl" if kw.get("sb_mode") else "stream_curl_blocks"
+
+    patches = [
+        (wvt, "stream_wvt", recorder(
+            sp.stream_wvt, lambda kw: "stream_wvt"
+            if kw.get("do_disp", True) else None)),
+        (bfield, "stream_curl", recorder(sp.stream_curl, curl_name)),
+        (wvt, "solve_density", recorder(cp.solve_density,
+                                        lambda kw: "solve_density")),
+        (sph, "solve_density", recorder(cp.solve_density,
+                                        lambda kw: "solve_density")),
+        (wvt, "wvt_displacement", recorder(cp.wvt_displacement,
+                                           lambda kw: "wvt_displacement")),
+        (wvt, "fused_wvt", recorder(cp.fused_wvt, lambda kw: "fused_wvt")),
+    ]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, fn in patches:
+        setattr(mod, attr, fn)
+    par = ROOT / PKG / "data" / "cluster.par"
+    out = Path(tmp) / f"IC_{engine}"
+    tlog.METRICS.clear()
+    kernels = (sp.stream_wvt, sp.stream_curl, cp.solve_density,
+               cp.wvt_displacement, cp.fused_wvt)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main([str(par), f"output_file={out}", "device=cuda",
+                       f"engine={engine}"])
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    launches["stream_curl_blocks"] = by_name["stream_curl_blocks"]
+    if rc != 0:
+        fail(f"cli.main returned {rc} (engine={engine})")
+    need = (("stream_wvt", "stream_curl") if engine == "stream" else
+            ("solve_density", "wvt_displacement", "fused_wvt",
+             "stream_curl_blocks"))
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"the {engine} main path launched {name} no time")
+    if engine == "classed" and launches["stream_wvt"] != 0:
+        fail("the classed main path launched stream_wvt")
+    say(f"main path engine={engine}: wall {wall:.3f} s, launches "
+        f"{launches}")
+
+    prev = t0 - tlog._T0
+    for rec in tlog.METRICS:
+        if rec["stage"].startswith("wvt") and rec["stage"] != "wvt_done":
+            continue
+        say(f"[{engine}] stage {rec['stage']:<16} ends at {rec['t']:9.3f} s "
+            f"(+{rec['t'] - prev:.3f} s)")
+        prev = rec["t"]
+    errs = [r["err_mean"] for r in tlog.METRICS if r["stage"] == "wvt"]
+    done = [r for r in tlog.METRICS if r["stage"] == "wvt_done"]
+    builds = [r for r in tlog.METRICS if r["stage"] == "wvt_build"]
+    retries = [r for r in tlog.METRICS if r["stage"] == "wvt_retry"]
+    say(f"[{engine}] wvt err_mean trajectory ({len(errs)} iterations): "
+        f"{errs}")
+    say(f"[{engine}] wvt builds {len(builds)}, far-tail rows per build "
+        f"{[r.get('tail_rows', 0) for r in builds]}, list widths "
+        f"{[r['max_cand'] for r in builds]}; retries "
+        f"{[(r['it'], r['n_sat']) for r in retries]}")
+    if len(errs) < 2 or not errs[-1] < 0.6 * errs[0]:
+        fail(f"err_mean did not fall: {errs}")
+    say(f"[{engine}] wvt: {done[0]['iterations']} iterations in "
+        f"{done[0]['seconds']:.3f} s = "
+        f"{done[0]['particle_updates_per_s']:.6g} particle updates/s")
+    frac = sph.last_contract_frac
+    say(f"[{engine}] neighbour contract fraction {frac}")
+    if not frac >= 0.999:
+        fail(f"contract fraction {frac} < 0.999")
+    check_snapshot(out)
     return launches, recorded
 
 
-def time_on_main_path_inputs(torch, sp, recorded):
+def time_on_main_path_inputs(torch, sp, cp, recorded):
     """Kernel vs plain on the inputs of each kernel's first main-path
     call: agreement and CUDA-event times.  These launches come after the
-    counted run."""
+    counted runs."""
     res = {}
     args, kw = recorded["stream_wvt"]
-    got = sp.stream_wvt(*args, **kw)
-    torch.cuda.synchronize()
-    ref = sp._stream_wvt_reference(*args, n_sweeps=sp.N_SWEEPS, **kw)
-    nb = args[0].shape[0]
-    valid = args[0][:, 3, :] > 0
-    err = compare_wvt(torch, got, ref, valid.reshape(nb, 128),
-                      kw["desnngb"], kw.get("do_disp", True))
-    k_ms = event_ms(torch, lambda: sp.stream_wvt(*args, **kw), 5)
-    p_ms = event_ms(torch, lambda: sp._stream_wvt_reference(
-        *args, n_sweeps=sp.N_SWEEPS, **kw), 1)
-    say(f"main-path stream_wvt: rows={nb} width={args[1].shape[1]} "
-        f"max|dwk|={err:.6g} kernel_ms={k_ms:.6g} plain_ms={p_ms:.6g}")
-    res["stream_wvt"] = (err, k_ms, p_ms)
-
-    args, kw = recorded["stream_curl"]
-    got = sp.stream_curl(*args, **kw)
-    torch.cuda.synchronize()
-    ref = sp._stream_curl_reference(*args, **kw)
-    valid = args[0][:, 3, :] > 0
-    err = compare_curl(torch, got, ref, valid)
-    k_ms = event_ms(torch, lambda: sp.stream_curl(*args, **kw), 5)
-    p_ms = event_ms(torch, lambda: sp._stream_curl_reference(*args, **kw), 1)
-    say(f"main-path stream_curl: rows={args[0].shape[0]} "
-        f"width={args[1].shape[1]} max|dB|/max|B|={err:.6g} "
-        f"kernel_ms={k_ms:.6g} plain_ms={p_ms:.6g}")
-    res["stream_curl"] = (err, k_ms, p_ms)
+    res["stream_wvt"] = check_wvt(torch, sp, args, kw,
+                                  (args[0][:, 3, :] > 0))
+    # receiver lanes with a nonzero wfac are the curl's valid ones; the
+    # count-class operators are held on every receiver lane
+    for name, check, mod, cand_arg, valid_of in (
+            ("stream_wvt", None, sp, 1, None),
+            ("stream_curl", check_curl, sp, 1, lambda a: a[5] != 0),
+            ("stream_curl_blocks", check_curl, sp, 1, lambda a: a[5] != 0),
+            ("solve_density", check_solve, cp, 2,
+             lambda a: torch.ones_like(a[4], dtype=torch.bool)),
+            ("wvt_displacement", check_disp, cp, 3,
+             lambda a: torch.ones_like(a[5], dtype=torch.bool)),
+            ("fused_wvt", check_fused, cp, 2,
+             lambda a: torch.ones_like(a[5], dtype=torch.bool))):
+        args, kw = recorded[name]
+        if check is not None:
+            res[name] = check(torch, mod, args, kw, valid_of(args))
+        cand = args[cand_arg]
+        say(f"main-path {name}: rows={cand.shape[0]} width={cand.shape[1]} "
+            f"sb_mode={kw.get('sb_mode', name == 'stream_wvt')} "
+            f"max_err={res[name][0]:.6g} kernel_ms={res[name][1]:.6g} "
+            f"plain_ms={res[name][2]:.6g}")
     return res
 
 
@@ -280,26 +431,41 @@ def main():
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)}")
 
+    from toycluster_tpu_torch.ops import class_pair as cp
     from toycluster_tpu_torch.ops import cuda_build
     from toycluster_tpu_torch.ops import stream_pair as sp
-    for name, _, _ in KERNELS:
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    cuda_build.build(LIBS)
+    say(f"build of {len(LIBS)} kernels (parallel nvcc): "
+        f"{time.perf_counter() - t0:.3f} s")
+    for name in LIBS:
         cuda_build.load(name)
-        say(f"build {name}: {time.perf_counter() - t0:.3f} s")
         for line in cuda_build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
-                say(f"  nvcc: {line.strip()}")
+                say(f"  nvcc {name}: {line.strip()}")
 
-    check_kernels_on_cusp(torch, sp, torch.device("cuda"))
+    check_kernels_on_cusp(torch, sp, cp, torch.device("cuda"))
 
+    launches, recorded = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches, recorded = run_main_path(torch, sp, tmp)
-    res = time_on_main_path_inputs(torch, sp, recorded)
+        for engine, names in (("stream", ("stream_wvt", "stream_curl")),
+                              ("classed", ("solve_density",
+                                           "wvt_displacement", "fused_wvt",
+                                           "stream_curl_blocks"))):
+            run_launches, run_recorded = run_main_path(torch, sp, cp, tmp,
+                                                       engine)
+            for name in names:
+                launches[name] = run_launches[name]
+                if name not in run_recorded:
+                    fail(f"no {name} call was recorded")
+                recorded[name] = run_recorded[name]
+    res = time_on_main_path_inputs(torch, sp, cp, recorded)
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": res[name][0],
-         "ms": res[name][1], "plain_ms": res[name][2]}
-        for name, src, rep in KERNELS]}
+        {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{lib}.cu",
+         "replaces": rep, "launches": launches[name],
+         "max_abs_err": res[name][0], "ms": res[name][1],
+         "plain_ms": res[name][2]}
+        for name, lib, rep in KERNELS]}
     for k in record["kernels"]:
         for key in ("max_abs_err", "ms", "plain_ms"):
             if not math.isfinite(k[key]):

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from toycluster_tpu_torch.ops import class_pair as cp
 from toycluster_tpu_torch.ops import cusp
 from toycluster_tpu_torch.ops import stream_pair as sp
 
@@ -66,8 +67,10 @@ def test_stream_wvt_kernel_matches_plain(dev, kernel, do_disp):
 
 
 @pytest.mark.parametrize("kernel", ["wc6", "m4"])
-def test_stream_curl_kernel_matches_plain(dev, kernel):
-    cargs, kw, valid = cusp.curl_inputs(kernel, N, device=dev)
+@pytest.mark.parametrize("sb_mode", [True, False])
+def test_stream_curl_kernel_matches_plain(dev, kernel, sb_mode):
+    cargs, kw, valid = cusp.curl_inputs(kernel, N, device=dev,
+                                        sb_mode=sb_mode)
     before = sp.stream_curl.launches
     got = sp.stream_curl(*cargs, **kw)
     torch.cuda.synchronize()
@@ -77,6 +80,62 @@ def test_stream_curl_kernel_matches_plain(dev, kernel):
     scale = float(a.abs().max())
     assert scale > 0
     torch.testing.assert_close(b, a, rtol=5e-4, atol=2e-5 * scale)
+
+
+def _density_close(got, ref, valid, desnngb):
+    """h/rho rtol 2e-3 on > 98% of the lanes done in both (lanes on a
+    wkNgb plateau move along it with any change of summation order),
+    |wkNgb - DESNNGB| < 0.05 + 1e-3 there, done counts within 3%."""
+    both = valid & got[4] & ref[4]
+    assert int(both.sum()) >= 0.97 * int((valid & ref[4]).sum())
+    ok = (torch.isclose(got[1][both], ref[1][both], rtol=2e-3, atol=0)
+          & torch.isclose(got[0][both], ref[0][both], rtol=2e-3, atol=0))
+    assert float(ok.float().mean()) > 0.98
+    assert float((got[3][both] - desnngb).abs().max()) < 0.05 + 1e-3
+
+
+def _disp_close(got, ref, valid):
+    a, b = ref[valid], got[valid]
+    torch.testing.assert_close(b, a, rtol=2e-4,
+                               atol=1e-6 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+@pytest.mark.parametrize("sb_mode", [False, True])
+def test_class_kernels_match_plain(dev, kernel, sb_mode):
+    """solve_density, wvt_displacement and fused_wvt (with and without
+    the bounds, bit-identical) against their plain versions."""
+    c = cusp.class_inputs(kernel, N, sb_mode, device=dev)
+    des, v = c["desnngb"], c["valid"]
+    kw = dict(kernel=kernel, desnngb=des, sb_mode=sb_mode)
+    before = (cp.solve_density.launches, cp.wvt_displacement.launches,
+              cp.fused_wvt.launches)
+    args = (c["pos_t"], c["valid_t"], c["cand"], c["pos_t"], c["h0"],
+            c["cap"], 1.0, cusp.BOX)
+    got = cp.solve_density(*args, **kw)
+    ref = cp._solve_density_reference(*args, n_sweeps=cp.SOLVE_SWEEPS, **kw)
+    _density_close(got, (ref[..., 0], ref[..., 1], None, ref[..., 3],
+                         ref[..., 4] > 0.5), v, des)
+    dargs = (c["pos_t"], c["valid_t"], c["h_b3"], c["cand"], c["pos_t"],
+             c["hm"], 1.0, cusp.BOX)
+    _disp_close(cp.wvt_displacement(*dargs, kernel=kernel, sb_mode=sb_mode),
+                cp._wvt_displacement_reference(*dargs, kernel=kernel,
+                                               sb_mode=sb_mode), v)
+    fargs = (c["pos_t"], c["hm_blocks"], c["cand"], c["cnt"], c["pos_t"],
+             c["h0"], c["cap"], c["hm"], 1.0, cusp.BOX)
+    got = cp.fused_wvt(*fargs, **kw)
+    bounded = cp.fused_wvt(*fargs, **kw, gdist=c["gdist"], dkeep=c["dkeep"])
+    torch.cuda.synchronize()
+    for a, b in zip(got, bounded):
+        assert torch.equal(a, b)
+    ref = cp._fused_wvt_reference(*fargs, n_sweeps=cp.FUSED_SWEEPS,
+                                  do_disp=True, gdist=None, dkeep=None, **kw)
+    _density_close(got, (ref[..., 0], ref[..., 1], None, ref[..., 3],
+                         ref[..., 4] > 0.5), v, des)
+    _disp_close(got[5], ref[..., 5:8], v)
+    assert (cp.solve_density.launches, cp.wvt_displacement.launches,
+            cp.fused_wvt.launches) == tuple(n + k for n, k in
+                                            zip(before, (1, 1, 2)))
 
 
 def test_wrapper_rejects_mixed_devices(dev):
@@ -100,6 +159,27 @@ def test_cli_main_path_on_cuda(dev, tmp_path):
     assert sp.stream_wvt.launches > 0 and sp.stream_curl.launches > 0
     snap = read_snapshot(str(out))
     assert snap["pos"].shape == (20000, 3)
+    for k in ("pos", "vel", "u", "rho", "hsml", "bfld", "rho_model"):
+        assert np.isfinite(snap[k]).all(), k
+    assert (snap["rho"] > 0).all() and (snap["u"] > 0).all()
+
+
+def test_cli_classed_on_cuda(dev, tmp_path):
+    """engine=classed on device=cuda at a small size launches the
+    count-class kernels and no stream_wvt, and writes a finite
+    snapshot."""
+    from toycluster_tpu_torch import cli
+    from toycluster_tpu_torch.io.gadget import read_snapshot
+    out = tmp_path / "IC"
+    for k in (sp.stream_wvt, sp.stream_curl, cp.solve_density,
+              cp.wvt_displacement, cp.fused_wvt):
+        k.launches = 0
+    assert cli.main([str(_PAR), "ntotal=20000", "sph_kernel=m4",
+                     "wvt_max_iter=4", f"output_file={out}", "device=cuda",
+                     "engine=classed"]) == 0
+    assert sp.stream_wvt.launches == 0
+    assert cp.fused_wvt.launches > 0 and sp.stream_curl.launches > 0
+    snap = read_snapshot(str(out))
     for k in ("pos", "vel", "u", "rho", "hsml", "bfld", "rho_model"):
         assert np.isfinite(snap[k]).all(), k
     assert (snap["rho"] > 0).all() and (snap["u"] > 0).all()

@@ -31,7 +31,7 @@ def test_plain_matches_pallas_kernel(kernel):
     args, kw, valid = cusp.curl_inputs(kernel, N)
     ref = stream_curl_pallas(
         *(jnp.asarray(a.numpy()) if torch.is_tensor(a) else a for a in args),
-        **kw, sb_mode=True, interpret=True)
+        **kw, interpret=True)
     got = stream_pair.stream_curl(*args, **kw)
     assert got.shape == (args[1].shape[0], 128, 3)
     assert_close(got, ref, valid)

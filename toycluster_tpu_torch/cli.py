@@ -1,6 +1,7 @@
 """Command-line entry point::
 
     python -m toycluster_tpu_torch <parfile> [field=value ...] [device=...]
+        [engine=...]
 
 JAX counterpart: ``toycluster_tpu/cli.py``.  Replaces ``./Toycluster
 cluster.par`` (main.c:11-72); the reference's compile-time flags are
@@ -9,7 +10,9 @@ cluster.par`` (main.c:11-72); the reference's compile-time flags are
     python -m toycluster_tpu_torch cluster.par ntotal=100000 sph_kernel=m4
 
 The device defaults to ``cuda``; without a card the run fails unless
-``device=cpu`` is given.
+``device=cpu`` is given.  ``engine`` picks the neighbour engine:
+``stream`` (the default) or ``classed`` (models/sph.py); any other value
+raises.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import sys
 import torch
 
 from .config import parse_par_file
+from .models.sph import check_engine
 from .pipeline import make_ics
 
 
@@ -37,23 +41,27 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("Usage: python -m toycluster_tpu_torch <parameterfile> "
-              "[field=value...] [device=cuda|cpu]", file=sys.stderr)
+              "[field=value...] [device=cuda|cpu] [engine=stream|classed]",
+              file=sys.stderr)
         return 1
     overrides = {}
-    device = "cuda"
+    device, engine = "cuda", "stream"
     for tok in argv[1:]:
         k, _, v = tok.partition("=")
         if k == "device":
             device = v
+        elif k == "engine":
+            engine = v
         else:
             overrides[k] = _coerce(v)
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, not {device!r}")
+    check_engine(engine)
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device=cuda but CUDA is not available; pass "
                            "device=cpu to run on the CPU")
     cfg = parse_par_file(argv[0], **overrides)
-    make_ics(cfg, device=device)
+    make_ics(cfg, device=device, engine=engine)
     return 0
 
 

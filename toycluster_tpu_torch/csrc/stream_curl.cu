@@ -1,18 +1,22 @@
-// SPH curl of the vector potential over superblock candidate lists,
-// hand-written for Hopper (sm_90a):
+// SPH curl of the vector potential over block or superblock candidate
+// lists, hand-written for Hopper (sm_90a):
 //   B_i = wfac_i * sum_j dW(r, h_i)/dr / r * (dx x (A_i - A_j)),
 // over r < h_i, r > 0, j valid (Price 2010 eq. 79, reference sph.c:216-300),
 // with wfac = -m varHsmlFac / rho.
 //
 // Replaces: toycluster_tpu/ops/pallas_pair.py _curl_stream_kernel
 // (launched by stream_curl_pallas), the TPU kernel of the B-field stage
-// (models/bfield.py).
+// (models/bfield.py), in both of its list modes: superblock ids (the
+// stream engine's lists and the count-class engine's far-tail rows) and
+// block ids (the count-class engine's lists; there it also replaces the
+// XLA pair operator toycluster_tpu/ops/pair_ops.py sph_curl).
 //
 // Work: one CTA of 128 threads per receiver block, one thread per
-// receiver lane.  The CTA walks the first min(cnt, M) superblocks of its
-// list and their member blocks; each member block's 128 sources (x, y, z,
-// valid, A0, A1, A2: 3.5 KB) are staged in shared memory and every thread
-// loops over them, accumulating the three curl components in registers.
+// receiver lane.  The CTA walks the first min(cnt, M) entries of its list:
+// in superblock mode the (up to) 8 member blocks of each, in block mode
+// the block itself.  Each source block's 128 sources (x, y, z, valid, A0,
+// A1, A2: 3.5 KB) are staged in shared memory and every thread loops over
+// them, accumulating the three curl components in registers.
 //
 // What bounds it: pair arithmetic (~25 fp32 operations per pair out of
 // range, ~60 in range), with each staged source block reused by 128
@@ -24,19 +28,20 @@
 // into receiver and source partial sums cancels badly in f32 (up to 5e-2
 // relative where A varies slowly).
 
-#include <cuda_runtime.h>
+#include "pair_common.cuh"
 
 namespace {
 
-constexpr int BLOCK = 128;
-constexpr int SUPER = 8;
+using pair_common::BLOCK;
+using pair_common::M4;
+using pair_common::SUPER;
+using pair_common::WC6;
+using pair_common::WC6_NORM;
+
 constexpr int SRC_ROWS = 8;   // x y z valid a0 a1 a2 pad
 constexpr int USED_ROWS = 7;
-constexpr float WC6_NORM = (float)(1365.0 / (64.0 * 3.14159265358979323846));
 
-enum Kind { WC6 = 0, M4 = 1 };
-
-template <int KIND>
+template <int KIND, bool SB>
 __global__ void __launch_bounds__(BLOCK)
 stream_curl_kernel(const float* __restrict__ src, const int* __restrict__ cand,
                    const int* __restrict__ cnt, const float* __restrict__ xi,
@@ -64,11 +69,12 @@ stream_curl_kernel(const float* __restrict__ src, const int* __restrict__ cand,
 
   float bx = 0.0f, by = 0.0f, bz = 0.0f;
   for (int g = 0; g < n_grp; ++g) {
-    const int sb = row[g];
-    if (sb < 0) continue;
-    const int n_mem = min(SUPER, nb - sb * SUPER);
+    const int id = row[g];
+    if (id < 0) continue;
+    const int first = SB ? id * SUPER : id;
+    const int n_mem = SB ? min(SUPER, nb - first) : 1;
     for (int f = 0; f < n_mem; ++f) {
-      const float* blk = src + (size_t)(sb * SUPER + f) * SRC_ROWS * BLOCK;
+      const float* blk = src + (size_t)(first + f) * SRC_ROWS * BLOCK;
       __syncthreads();
 #pragma unroll
       for (int k = 0; k < USED_ROWS; ++k)
@@ -125,14 +131,20 @@ extern "C" int stream_curl_launch(const float* src, const int* cand,
                                   const int* cnt, const float* xi,
                                   const float* hsml, const float* wfac,
                                   const float* apot, float* out, int S, int M,
-                                  int nb, int kind, float box, void* stream) {
+                                  int nb, int kind, int sb_mode, float box,
+                                  void* stream) {
   if (S <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == M4)
-    stream_curl_kernel<M4><<<S, BLOCK, 0, st>>>(src, cand, cnt, xi, hsml,
-                                                wfac, apot, out, M, nb, box);
-  else
-    stream_curl_kernel<WC6><<<S, BLOCK, 0, st>>>(src, cand, cnt, xi, hsml,
-                                                 wfac, apot, out, M, nb, box);
+#define TC_CURL(K, SBM)                                                    \
+  stream_curl_kernel<K, SBM><<<S, BLOCK, 0, st>>>(src, cand, cnt, xi, hsml, \
+                                                  wfac, apot, out, M, nb, box)
+  if (kind == M4) {
+    if (sb_mode) TC_CURL(M4, true);
+    else TC_CURL(M4, false);
+  } else {
+    if (sb_mode) TC_CURL(WC6, true);
+    else TC_CURL(WC6, false);
+  }
+#undef TC_CURL
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,18 +32,21 @@
 // padded list entries (cand < 0), members past nb and source lanes with
 // hm == 0 take part in no pair.
 
-#include <cuda_runtime.h>
+#include "pair_common.cuh"
 
 namespace {
 
-constexpr int BLOCK = 128;
-constexpr int SUPER = 8;
-constexpr int SRC_ROWS = 4;  // x, y, z, hm
-constexpr float WC6_NORM = (float)(1365.0 / (64.0 * 3.14159265358979323846));
-constexpr float FOURPITHIRD = 4.18879032135009765f;
-constexpr float NNGBDEV = 0.05f;
+using pair_common::BLOCK;
+using pair_common::dens_pair;
+using pair_common::FOURPITHIRD;
+using pair_common::M4;
+using pair_common::NNGBDEV;
+using pair_common::norm_sums;
+using pair_common::SUPER;
+using pair_common::WC6;
+using pair_common::WC6_NORM;
 
-enum Kind { WC6 = 0, M4 = 1 };
+constexpr int SRC_ROWS = 4;  // x, y, z, hm
 
 struct Args {
   const float* src;   // (nb_pad, 4, 128), nb_pad a multiple of SUPER
@@ -57,56 +60,6 @@ struct Args {
   int M, nb, n_sweeps;
   float mpart, box, desnngb, spec_win, rho_corr;
 };
-
-// Raw density sums of one pair at support radius h.  WC6 accumulates the
-// unnormalised t^8 poly and t^7 poly (normalised in norm_sums); M4
-// accumulates w and r dW/dr with their 1/h^3, 1/h^4 factors.
-template <int KIND>
-__device__ __forceinline__ void dens_pair(float u_or_r, float h,
-                                          float& aw, float& ardw) {
-  if (KIND == WC6) {
-    const float u = u_or_r;
-    if (u < 1.0f) {
-      const float t = 1.0f - u;
-      const float t2 = t * t;
-      const float t4 = t2 * t2;
-      const float t7 = t4 * t2 * t;
-      aw += t4 * t4 * (1.0f + u * (8.0f + u * (25.0f + 32.0f * u)));
-      ardw += t7 * (u * u * (1.0f + u * (7.0f + 16.0f * u)));
-    }
-  } else {
-    const float r = u_or_r;
-    const float u = r / h;
-    if (u < 1.0f) {
-      const float h3 = h * h * h;
-      float w, dw;
-      if (u < 0.5f) {
-        w = 2.546479089470f + 15.278874536822f * (u - 1.0f) * u * u;
-        dw = u * (45.836623610466f * u - 30.557749073644f);
-      } else {
-        const float t = 1.0f - u;
-        w = 5.092958178941f * (t * t * t);
-        dw = -15.278874536822f * (t * t);
-      }
-      aw += w / h3;
-      ardw += r * (dw / (h3 * h));
-    }
-  }
-}
-
-template <int KIND>
-__device__ __forceinline__ void norm_sums(float h, float raw_w, float raw_rdw,
-                                          float& sw, float& srdw) {
-  if (KIND == WC6) {
-    const float inv_h = 1.0f / h;
-    const float norm_h3 = WC6_NORM * (inv_h * inv_h * inv_h);
-    sw = raw_w * norm_h3;
-    srdw = raw_rdw * (-22.0f * norm_h3);
-  } else {
-    sw = raw_w;
-    srdw = raw_rdw;
-  }
-}
 
 // One stream over the listed member blocks.  UNION (sweep 0 with
 // do_disp) also accumulates the displacement; every thread of the CTA

@@ -1,10 +1,11 @@
 """Carry state of the JAX package across to this one.
 
 JAX counterpart: none (the JAX package's state is the input).  The JAX
-package's ``Particles`` and ``HaloArrays`` are handed over as dicts of
-NumPy arrays (e.g. ``{k: np.asarray(v) for k, v in
-parts._asdict().items()}``), so both packages can be fed the same state,
-as weights are carried across between frameworks.
+package's ``Particles``, ``HaloArrays`` and block-granular
+``NeighbourState`` are handed over as dicts of NumPy arrays (e.g.
+``{k: np.asarray(v) for k, v in parts._asdict().items()}``), so both
+packages can be fed the same state, as weights are carried across
+between frameworks.
 """
 
 from __future__ import annotations
@@ -45,3 +46,34 @@ def halo_arrays_from_numpy(d: dict, device="cpu") -> HaloArrays:
     t = scene_arrays_from_numpy(d, device)
     return HaloArrays(**{f.name: t[f.name] for f in dataclasses.fields(
         HaloArrays)})
+
+
+def neighbour_state_from_numpy(index: dict, cand: dict, h_cap, *,
+                               tail=None, sb=False, device="cpu"):
+    """The JAX package's NeighbourState -> the port's: ``index`` and
+    ``cand`` its BlockIndex and CandidateList fields as NumPy arrays (or
+    scalars), ``h_cap`` (P,), ``tail`` its far-tail rows (ids (T,) with
+    -1 padding rows, superblock lists (T, M_sb), counts (T,)) or None,
+    ``sb`` whether the lists hold superblock ids.  Padding tail rows are
+    dropped."""
+    from .models.sph import NeighbourState
+    from .ops.blocks import BlockIndex, CandidateList
+
+    t = scene_arrays_from_numpy(index, device)
+    bi = BlockIndex(**{f: t[f] for f in BlockIndex._fields})
+    bi = bi._replace(order=bi.order.long())
+    c = scene_arrays_from_numpy(
+        {k: v for k, v in cand.items() if k in ("idx", "count", "sb_count")
+         and v is not None}, device)
+    cl = CandidateList(idx=c["idx"].contiguous(), count=c["count"],
+                       overflow=int(cand["overflow"]),
+                       sb_overflow=int(cand.get("sb_overflow", 0)),
+                       sb_count=c.get("sb_count"))
+    if tail is not None:
+        ids, sb_idx, sb_cnt = (np.asarray(x) for x in tail)
+        keep = ids >= 0
+        tail = tuple(torch.as_tensor(np.ascontiguousarray(x[keep]),
+                                     device=device)
+                     for x in (ids, sb_idx, sb_cnt))
+    h = torch.as_tensor(np.asarray(h_cap, np.float32), device=device)
+    return NeighbourState(index=bi, cand=cl, h_cap=h, tail=tail, sb=sb)

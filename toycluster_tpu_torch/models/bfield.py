@@ -1,10 +1,10 @@
 """Magnetic field from a density-scaled vector potential (reference
 magnetic_field.c, Bonafede+ 2010).
 
-JAX counterpart: ``toycluster_tpu/models/bfield.py`` (the stream-curl
-path).  A_i = max over gas halos of (rho_model/rho0)^eta, the same in all
-three components (magnetic_field.c:33-69); B = rot(A) by the SPH curl
-over the superblock candidate lists (``stream_curl``, sph.c:216-300);
+JAX counterpart: ``toycluster_tpu/models/bfield.py``.  A_i = max over
+gas halos of (rho_model/rho0)^eta, the same in all three components
+(magnetic_field.c:33-69); B = rot(A) by the SPH curl over the candidate
+lists of either engine (``stream_curl``, sph.c:216-300);
 then a global normalisation to Bfld_Norm with per-particle caps (18 uG
 main halos, 2 uG subhalos, magnetic_field.c:71-131).  A failure of the
 curl raises: there is no fallback path.
@@ -62,10 +62,10 @@ def normalise_field(scene: Scene, ha: HaloArrays, bfld, pos_gas):
     return bfld * scale[:, None]
 
 
-def curl_stream(scene, parts, state: sph_mod.NeighbourState):
-    """SPH curl of parts.apot through the state's superblock lists."""
+def _curl_inputs(scene, parts, bi):
+    """The curl's (nb, 8, 128) sources, receivers in block layout and
+    per-lane rows, in the sorted order of ``bi``."""
     n_gas = parts.n_gas
-    bi = state.index
     nb = bi.n_blocks
 
     def pad(x):
@@ -75,35 +75,63 @@ def curl_stream(scene, parts, state: sph_mod.NeighbourState):
     rho_s = pad(parts.rho[:n_gas])
     vf_s = pad(parts.var_hsml_fac[:n_gas])
     apot_s = pad(parts.apot[:n_gas])
-    pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(1, 2)
+    pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(1, 2).contiguous()
     valid_b = bi.valid.to(torch.float32).reshape(nb, 1, blk.BLOCK)
     ap_t = apot_s.reshape(nb, blk.BLOCK, 3).transpose(1, 2).contiguous()
     src8 = torch.cat([pos_t, valid_b, ap_t,
                       torch.zeros_like(valid_b)], dim=1).contiguous()
     wfac = torch.where(bi.valid, -float(scene.mpart_gas) * vf_s / rho_s,
                        torch.zeros_like(rho_s)).reshape(nb, blk.BLOCK)
-    out = stream_curl(src8, state.cand.idx, state.cand.count,
-                      pos_t.contiguous(), h_s.reshape(nb, blk.BLOCK),
-                      wfac.contiguous(), ap_t, float(scene.mpart_gas),
-                      float(scene.boxsize), kernel=scene.config.sph_kernel)
+    return src8, pos_t, h_s.reshape(nb, blk.BLOCK), wfac, ap_t
+
+
+def sph_curl(scene, parts, state: sph_mod.NeighbourState):
+    """SPH curl of parts.apot through the state's lists: one
+    ``stream_curl`` over every row's superblock list (the stream
+    engine), or one block-list ``stream_curl`` per count class and one
+    in superblock mode over the far-tail rows (the count-class engine)."""
+    n_gas = parts.n_gas
+    bi = state.index
+    src8, pos_t, h_b, wfac, ap_t = _curl_inputs(scene, parts, bi)
+
+    def curl(ids, rows, cnt, sb_mode):
+        idc = slice(None) if ids is None else ids.long()
+        return (stream_curl(src8, rows, cnt, pos_t[idc], h_b[idc],
+                            wfac[idc], ap_t[idc], float(scene.mpart_gas),
+                            float(scene.boxsize),
+                            kernel=scene.config.sph_kernel,
+                            sb_mode=sb_mode),)
+
+    if state.sb:
+        (out,) = curl(None, state.cand.idx, state.cand.count, True)
+    else:
+        (out,) = sph_mod.run_classed(
+            state, lambda ids, rows, cnt, m: curl(ids, rows, cnt, False),
+            lambda ids, sb_rows, sb_cnt: curl(ids, sb_rows, sb_cnt, True))
     bfld = torch.zeros((n_gas, 3), dtype=torch.float32, device=out.device)
     bfld[bi.order] = out.reshape(-1, 3)[:n_gas]
     return bfld
 
 
 def make_magnetic_field(scene: Scene, ha: HaloArrays, parts: Particles,
-                        state: sph_mod.NeighbourState | None = None
-                        ) -> Particles:
-    """The B-field stage (magnetic_field.c:12-26).  Needs solved
-    rho/hsml; ``state`` reuses the density stage's structure, else a
-    gather-range structure is built at the final positions."""
+                        state: sph_mod.NeighbourState | None = None, *,
+                        engine: str = "stream") -> Particles:
+    """The B-field stage (magnetic_field.c:12-26) on ``engine``.  Needs
+    solved rho/hsml; ``state`` reuses the density stage's structure
+    (built by the same engine), else a gather-range structure is built
+    at the final positions."""
+    sph_mod.check_engine(engine)
     n_gas = parts.n_gas
     if n_gas == 0:
         return parts
     parts = set_vector_potential(scene, ha, parts)
     if state is None:
-        state = sph_mod.build_neighbours(parts.pos[:n_gas],
-                                         parts.hsml[:n_gas], scene.boxsize)
-    bfld = curl_stream(scene, parts, state)
+        build = (sph_mod.build_neighbours if engine == "stream"
+                 else sph_mod.build_neighbours_blocks)
+        state = build(parts.pos[:n_gas], parts.hsml[:n_gas], scene.boxsize)
+    elif state.sb != (engine == "stream"):
+        raise ValueError(f"the neighbour state was not built by the "
+                         f"{engine} engine")
+    bfld = sph_curl(scene, parts, state)
     bfld = normalise_field(scene, ha, bfld, parts.pos[:n_gas])
     return parts.replace(bfld=bfld)

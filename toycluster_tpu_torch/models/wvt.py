@@ -1,15 +1,25 @@
 """Weighted-Voronoi-tessellation particle regularisation (reference
 wvt_relax.c:25-225, after Diehl+ 2012), the hot loop of the pipeline.
 
-JAX counterpart: ``toycluster_tpu/models/wvt.py`` (the stream branch of
-``_get_iter_fn`` and ``regularise_sph_particles``).  Each iteration:
-(1) SPH density and adaptive hsml over the current superblock lists,
-fused with (2) the WVT displacement in one ``stream_wvt`` call;
-(3) the relative error against the analytic model density and the
-reference's early-stop and step-shrink rules; (4) a move with periodic
-wrap.  The block structure is reused across iterations: candidate lists
-carry radius slack, accumulated drift is budgeted, and saturated lanes
-force a retry or a rebuild.  Relaxation runs in units of the boxsize.
+JAX counterpart: ``toycluster_tpu/models/wvt.py`` (``_get_iter_fn`` and
+``regularise_sph_particles``).  Each iteration: (1) SPH density and
+adaptive hsml, (2) the WVT displacement, (3) the relative error against
+the analytic model density and the reference's early-stop and
+step-shrink rules; (4) a move with periodic wrap.  The block structure is
+reused across iterations: candidate lists carry radius slack,
+accumulated drift is budgeted, and saturated lanes force a retry or a
+rebuild.  Relaxation runs in units of the boxsize.
+
+Two engines (models/sph.py).  The stream engine runs (1) and (2) in one
+``stream_wvt`` call over superblock lists, refreshes the lists when
+drift spends their slack, and solves against a tight margin over the
+warm h.  The count-class engine runs one ``fused_wvt`` per count class
+of width <= FUSED_WIDTH blocks (the TPU design keeps such a class's
+whole candidate set on chip), ``solve_density`` then
+``wvt_displacement`` for wider classes and the far-tail rows, solves
+against the build cap, rebuilds wherever the stream engine would
+refresh, and rebuilds every iteration while its structure has far-tail
+rows.
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ import torch
 
 from .. import constants as const
 from ..ops import blocks as blk
+from ..ops.class_pair import (fused_bounds, fused_wvt, solve_density,
+                              wvt_displacement)
 from ..ops.stream_pair import stream_wvt
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
@@ -47,6 +59,8 @@ DRIFT_BUDGET_HARD_EDGE = 0.09  # kernels without high-order contact
 # outgrow it saturate and re-enter through the retry machinery.
 BITS_MARGIN_WARM = 1.02
 BITS_MARGIN_COLD = 1.25
+# widest count class the count-class engine runs through fused_wvt
+FUSED_WIDTH = sph_mod.CLASS_EDGES[0]
 
 
 def _drift_budget(kernel):
@@ -93,8 +107,10 @@ def _warm_ratio(rho_model, rho_model_prev):
 class _Loop:
     """Constants of one relaxation."""
 
-    def __init__(self, scene: Scene, ha: HaloArrays, n_gas: int):
+    def __init__(self, scene: Scene, ha: HaloArrays, n_gas: int,
+                 engine: str):
         cfg = scene.config
+        self.engine = engine
         self.ha = ha
         self.n_gas = n_gas
         self.boxsize = float(scene.boxsize)
@@ -112,11 +128,55 @@ class _Loop:
                                          self.cool_core, beta=self.beta),
             self.mpart, self.desnngb)
 
+    def solve_classed(self, state, pos_pad, h0_s, cap_s, hm_s, hm_src,
+                      valid):
+        """Density solve and displacement per count class: (rho, hsml,
+        vf, wk, done) as (nb, 128) and delta (nb, 128, 3), box units."""
+        nb = state.index.n_blocks
+        kw = dict(kernel=self.kernel, desnngb=self.desnngb,
+                  n_sweeps=sph_mod.CLASSED_SWEEPS)
+        pos_t = pos_pad.reshape(nb, blk.BLOCK, 3).transpose(1, 2).contiguous()
+        hm_b = hm_s.reshape(nb, blk.BLOCK)
+        hm_blocks = hm_src.reshape(nb, 1, blk.BLOCK)
+        valid_t = valid.to(torch.float32).reshape(nb, 1, blk.BLOCK)
+        h_b3 = hm_s.reshape(nb, 1, blk.BLOCK)
+        h0_b = h0_s.reshape(nb, blk.BLOCK)
+        cap_b = cap_s.reshape(nb, blk.BLOCK)
+        # the fused kernel's exact-zero skips: block boxes at the
+        # current positions
+        bb_lo, bb_hi = sph_mod.block_boxes(pos_pad, self.boxsize)
+        bhm = hm_blocks[:, 0].amax(dim=1)
+
+        def fused(ids, rows, cnt):
+            idc = ids.long()
+            gdist, dkeep = fused_bounds(bb_lo, bb_hi, ids, rows,
+                                        hm_b[idc].amax(dim=1), bhm,
+                                        self.boxsize)
+            return fused_wvt(pos_t, hm_blocks, rows, cnt, pos_t[idc],
+                             h0_b[idc], cap_b[idc], hm_b[idc], self.mpart,
+                             self.boxsize, gdist=gdist, dkeep=dkeep, **kw)
+
+        def two_pass(ids, rows, sb_mode):
+            idc = ids.long()
+            res = solve_density(pos_t, valid_t, rows, pos_t[idc], h0_b[idc],
+                                cap_b[idc], self.mpart, self.boxsize,
+                                sb_mode=sb_mode, **kw)[:5]
+            return res + (wvt_displacement(
+                pos_t, valid_t, h_b3, rows, pos_t[idc], hm_b[idc], 1.0,
+                self.boxsize, kernel=self.kernel, sb_mode=sb_mode),)
+
+        return sph_mod.run_classed(
+            state,
+            lambda ids, rows, cnt, m: (fused(ids, rows, cnt)
+                                       if m <= FUSED_WIDTH else
+                                       two_pass(ids, rows, False)),
+            lambda ids, sb_rows, sb_cnt: two_pass(ids, sb_rows, True))
+
     def iterate(self, state, pos_gas, h_prev, rhom_prev, sat_mask,
                 margin_w, fac_gas, step, err_last, it):
         """One WVT iteration on the current structure: model density,
-        metric, the fused stream solve + displacement, error statistics
-        and the speculative move.  Returns a dict of results."""
+        metric, the density solve + displacement, error statistics and
+        the speculative move.  Returns a dict of results."""
         n_gas = self.n_gas
         nb = state.index.n_blocks
         n_padded = nb * blk.BLOCK
@@ -133,18 +193,23 @@ class _Loop:
         h0_s = pad1(h0)
         hm_s = pad1(h_box)
         hm_src = torch.where(valid, hm_s, torch.zeros_like(hm_s))
-        margin = torch.where(pad1(h_prev > 0),
-                             torch.full_like(h0_s, margin_w),
-                             torch.full_like(h0_s, BITS_MARGIN_COLD))
         h_cap_pad = state.h_cap
-        cap_eff = torch.where(pad1(sat_mask), h_cap_pad,
-                              torch.minimum(h_cap_pad, h0_s * margin))
-        src, pos_t = sph_mod.source_blocks(pad1(pos_gas), hm_src)
-        rho, hsml, vf, wk, done, delta = stream_wvt(
-            src, state.cand.idx, state.cand.count, pos_t,
-            h0_s.reshape(nb, blk.BLOCK), cap_eff.reshape(nb, blk.BLOCK),
-            hm_s.reshape(nb, blk.BLOCK), self.mpart, self.boxsize,
-            kernel=self.kernel, desnngb=self.desnngb, do_disp=True)
+        if self.engine == "classed":
+            cap_eff = h_cap_pad
+            rho, hsml, vf, wk, done, delta = self.solve_classed(
+                state, pad1(pos_gas), h0_s, cap_eff, hm_s, hm_src, valid)
+        else:
+            margin = torch.where(pad1(h_prev > 0),
+                                 torch.full_like(h0_s, margin_w),
+                                 torch.full_like(h0_s, BITS_MARGIN_COLD))
+            cap_eff = torch.where(pad1(sat_mask), h_cap_pad,
+                                  torch.minimum(h_cap_pad, h0_s * margin))
+            src, pos_t = sph_mod.source_blocks(pad1(pos_gas), hm_src)
+            rho, hsml, vf, wk, done, delta = stream_wvt(
+                src, state.cand.idx, state.cand.count, pos_t,
+                h0_s.reshape(nb, blk.BLOCK), cap_eff.reshape(nb, blk.BLOCK),
+                hm_s.reshape(nb, blk.BLOCK), self.mpart, self.boxsize,
+                kernel=self.kernel, desnngb=self.desnngb, do_disp=True)
         rho, hsml, vf, wk, done = (x.reshape(-1)
                                    for x in (rho, hsml, vf, wk, done))
         delta = delta.reshape(-1, 3)
@@ -198,19 +263,24 @@ def _sync(device):
 
 
 def regularise_sph_particles(scene: Scene, ha: HaloArrays,
-                             parts: Particles, *, log=stage_log):
-    """Relax the gas positions.  Returns (parts, fresh): ``fresh`` means
+                             parts: Particles, *, log=stage_log,
+                             engine: str = "stream"):
+    """Relax the gas positions on ``engine`` ("stream" or "classed",
+    models/sph.py).  Returns (parts, fresh): ``fresh`` means
     the loop stopped without a final move, so parts.rho/hsml/
     var_hsml_fac already hold the full-contract density solve at the
     final positions and the stand-alone density stage is redundant.
     ``last_contract_frac`` then holds that solve's contract fraction."""
     global last_contract_frac
+    sph_mod.check_engine(engine)
     cfg = scene.config
     n_gas = parts.n_gas
     if n_gas == 0:
         return parts, False
     dev = parts.device
-    L = _Loop(scene, ha, n_gas)
+    L = _Loop(scene, ha, n_gas, engine)
+    build = (sph_mod.build_neighbours if engine == "stream"
+             else sph_mod.build_neighbours_blocks)
     desnngb, mpart, boxsize = L.desnngb, L.mpart, L.boxsize
     t_start = time.perf_counter()
 
@@ -263,12 +333,14 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
 
     for it in range(max_iter + 1):
         if (its_since_build >= REBUILD_EVERY
-                or sort_drift_acc > SORT_DRIFT_BUDGET):
+                or sort_drift_acc > SORT_DRIFT_BUDGET
+                or (state is not None and state.tail is not None)):
             state = None
         elif drift_acc > drift_budget and state is not None:
             # drift spent the lists' radius slack: refresh the lists only
-            # (the sort and block membership stay valid)
-            if rho_model_l is not None:
+            # (the sort and block membership stay valid); the count-class
+            # engine rebuilds
+            if engine == "stream" and rho_model_l is not None:
                 hm_w = (_metric_hsml(rho_model_l, mpart, desnngb)
                         * boxsize * SYM_MARGIN)
                 state = sph_mod.refresh_candidates(state, pos_gas, hm_w,
@@ -291,9 +363,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                         fac_gas)
                 h_cap_gas = torch.clamp(
                     torch.maximum(h0, h0_model) * fac_gas, max=L.h_hard)
-                state = sph_mod.build_neighbours(
-                    pos_gas, h_cap_gas, boxsize,
-                    radius_sym_gas=h_box * boxsize * SYM_MARGIN)
+                state = build(pos_gas, h_cap_gas, boxsize,
+                              radius_sym_gas=h_box * boxsize * SYM_MARGIN)
                 del h0_model, h_box, h0, h_cap_gas
                 # adopt the sorted layout on the loop arrays
                 order = state.index.order
@@ -308,7 +379,9 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                 drift_acc = 0.0
                 sort_drift_acc = 0.0
                 log("wvt_build", it=it, attempt=attempt,
-                    max_cand=state.max_cand)
+                    max_cand=state.max_cand,
+                    tail_rows=(0 if state.tail is None
+                               else int(state.tail[0].shape[0])))
 
             # the cold-start / big-move phase keeps the cold margin
             mw = (max(margin_warm, BITS_MARGIN_COLD)

@@ -11,8 +11,11 @@ reference's octree walk (tree.c:25-111):
    range under the periodic minimum-image metric, nearest first.
 
 The stream kernels (ops/stream_pair.py) then walk each receiver's
-superblock list.  BLOCK and SUPER are those of the JAX package, so the
-two packages build the same lists.
+superblock list.  The count-class engine (ops/class_pair.py) walks
+block-granular lists from ``find_candidates``, a second level that keeps
+the member blocks of the hit superblocks that lie in range.  BLOCK and
+SUPER are those of the JAX package, so the two packages build the same
+lists.
 """
 
 from __future__ import annotations
@@ -121,9 +124,105 @@ def _interval_dist2(lo1, hi1, lo2, hi2, boxsize):
 
 
 class CandidateList(NamedTuple):
-    idx: torch.Tensor      # (T, M) superblock ids, nearest first, -1 padded
+    idx: torch.Tensor      # (T, M) superblock ids, nearest first, or block
+    #                        ids in ascending order (find_candidates); -1
+    #                        padded
     count: torch.Tensor    # (T,) true hit counts (may exceed M)
     overflow: int          # max(count) - M; positive means truncation
+    sb_overflow: int = 0   # find_candidates: superblock-budget excess
+    sb_count: torch.Tensor | None = None  # find_candidates: (T,) level-1
+    #                                       superblock hit counts
+
+
+def default_max_super(ns: int, max_cand: int) -> int:
+    """Superblock budget of the two-level search: bounds the level-2 test
+    width (max_super * SUPER); callers grow it on sb_overflow."""
+    return min(ns, max(64, max_cand // SUPER))
+
+
+def _compact_left(hitb, cand, nb, max_cand):
+    """The hit candidate ids, ascending, in a fixed-width list padded
+    with nb."""
+    idx = torch.sort(torch.where(hitb, cand, torch.full_like(cand, nb)),
+                     dim=1).values[:, :max_cand]
+    if idx.shape[1] < max_cand:  # fewer candidate columns than M
+        idx = torch.cat([idx, torch.full(
+            (idx.shape[0], max_cand - idx.shape[1]), nb, dtype=idx.dtype,
+            device=idx.device)], dim=1)
+    return idx
+
+
+def find_candidates(bi: BlockIndex, radius, boxsize, *, max_cand: int,
+                    max_super: int | None = None, symmetric: bool = False,
+                    radius_sym=None) -> CandidateList:
+    """Block-granular candidate lists: per receiver block, the blocks
+    whose box lies within its range under the minimum-image metric, in
+    ascending id order.  ``radius`` is (nb,) per block; the range is
+    radius_i (gather), (radius_i + radius_j)/2 with ``symmetric`` (the
+    WVT displacement pair range, wvt_relax.c:158), or, with
+    ``radius_sym``, the union max(radius_i, (radius_sym_i +
+    radius_sym_j)/2) that serves a whole WVT iteration.
+
+    Two levels: superblock boxes first, keeping the first ``max_super``
+    hit superblocks by id; then their member blocks.  Callers check
+    ``overflow`` (truncated block lists) and ``sb_overflow`` (truncated
+    superblock lists) and grow the widths."""
+    nb = bi.n_blocks
+    ns = bi.sb_lo.shape[0]
+    dev = bi.bb_lo.device
+    if max_super is None:
+        max_super = default_max_super(ns, max_cand)
+    ms = min(max_super, ns)
+    pad = torch.zeros((ns * SUPER - nb,), dtype=radius.dtype, device=dev)
+    rad_blocks = torch.cat([radius, pad])
+    sb_rad = rad_blocks.reshape(ns, SUPER).amax(dim=1)
+    if radius_sym is not None:
+        sym_blocks = torch.cat([radius_sym, pad])
+        sb_sym = sym_blocks.reshape(ns, SUPER).amax(dim=1)
+
+    def rng_fn(rad_i, sym_i, rad_j, sym_j):
+        if radius_sym is not None:
+            return torch.maximum(rad_i, 0.5 * (sym_i + sym_j))
+        if symmetric:
+            return 0.5 * (rad_i + rad_j)
+        return rad_i
+
+    sb_ids = torch.arange(ns, dtype=torch.int32, device=dev)
+    fan = torch.arange(SUPER, dtype=torch.int32, device=dev)
+    idx_out, cnt_out, sbc_out = [], [], []
+    for c0 in range(0, nb, _CAND_CHUNK):
+        c1 = min(c0 + _CAND_CHUNK, nb)
+        lo_i, hi_i = bi.bb_lo[c0:c1, None], bi.bb_hi[c0:c1, None]
+        rad_i = radius[c0:c1, None]
+        sym_i = radius_sym[c0:c1, None] if radius_sym is not None else None
+        # level 1: receivers x superblocks
+        d2 = _interval_dist2(lo_i, hi_i, bi.sb_lo[None], bi.sb_hi[None],
+                             boxsize)
+        rng = rng_fn(rad_i, sym_i, sb_rad[None],
+                     sb_sym[None] if radius_sym is not None else None)
+        hit = d2 <= rng * rng
+        sb_cand = torch.sort(torch.where(hit, sb_ids[None], ns),
+                             dim=1).values[:, :ms]
+        # level 2: the member blocks of the kept superblocks
+        cand = (sb_cand[:, :, None] * SUPER + fan).reshape(c1 - c0,
+                                                           ms * SUPER)
+        cc = torch.clamp(cand, max=nb - 1).long()
+        d2b = _interval_dist2(lo_i, hi_i, bi.bb_lo[cc], bi.bb_hi[cc],
+                              boxsize)
+        rngb = rng_fn(rad_i, sym_i, rad_blocks[cc],
+                      sym_blocks[cc] if radius_sym is not None else None)
+        hitb = (d2b <= rngb * rngb) & (cand < nb)
+        idx = _compact_left(hitb, cand, nb, max_cand)
+        idx_out.append(torch.where(idx >= nb, torch.full_like(idx, -1),
+                                   idx).to(torch.int32))
+        cnt_out.append(hitb.sum(dim=1).to(torch.int32))
+        sbc_out.append(hit.sum(dim=1).to(torch.int32))
+    count = torch.cat(cnt_out)
+    sb_count = torch.cat(sbc_out)
+    return CandidateList(idx=torch.cat(idx_out), count=count,
+                         overflow=int(count.max()) - max_cand,
+                         sb_overflow=int(sb_count.max()) - ms,
+                         sb_count=sb_count)
 
 
 def _find_candidates_super_k(bi: BlockIndex, rec_ids, radius, radius_sym,

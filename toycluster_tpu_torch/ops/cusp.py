@@ -1,12 +1,13 @@
-"""Synthetic cusp inputs for the stream kernels.
+"""Synthetic cusp inputs for the pair kernels.
 
 The fixture of ``tests/test_pallas_density.py:34-57``: a cuspy particle
 cloud in a periodic box, with smoothing lengths growing outwards.  At n
 particles h is scaled by (1500/n)^(1/3), which keeps the neighbour count
-of the 1500-particle original.  Sources, superblock lists and receivers
+of the 1500-particle original.  Sources, candidate lists and receivers
 are built by the port's neighbour engine, in the layouts of
-``ops/stream_pair.py``.  The kernel checks use it: ``chip_smoke.py`` and
-the ``tests/test_torch_*`` files (the JAX kernels take the same arrays).
+``ops/stream_pair.py`` and ``ops/class_pair.py``.  The kernel checks use
+it: ``chip_smoke.py`` and the ``tests/test_torch_*`` files (the JAX
+kernels take the same arrays).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from . import blocks as blk
+from .class_pair import fused_bounds
 
 BOX = 1000.0
 DESNNGB = {"wc6": 64, "m4": 50}
@@ -59,12 +61,52 @@ def wvt_inputs(kernel, do_disp, n, seed=7, device="cpu"):
     return args, kw, valid
 
 
-def curl_inputs(kernel, n, seed=11, device="cpu"):
+def class_inputs(kernel, n, sb_mode, seed=7, device="cpu"):
+    """The count-class operators' arrays for the cusp (cap = 3 h0),
+    with block-granular lists (``find_candidates``) or, with
+    ``sb_mode``, superblock lists over every receiver row.  Returns a
+    dict: pos_t, valid_t, hm_blocks (hm on real lanes, else 0), h_b3 (hm
+    on every lane), cand, cnt, h0, cap, hm (S, 128), the fused bounds
+    gdist/dkeep, valid (S, 128) and desnngb."""
+    pos, h0 = (torch.as_tensor(a, device=device) for a in cusp_points(n, seed))
+    bi = blk.build_blocks(pos, BOX)
+    nb = bi.n_blocks
+    hs = blk.pad_rows(h0[bi.order], bi.n_padded)
+    cap = hs * 3.0
+    radius = cap.reshape(nb, blk.BLOCK).amax(dim=1)
+    if sb_mode:
+        cand = blk.find_candidates_super(
+            bi, torch.arange(nb, dtype=torch.int32, device=pos.device),
+            radius, radius, BOX, max_cand=max(4, bi.sb_lo.shape[0]))
+    else:
+        cand = blk.find_candidates(bi, radius, BOX, max_cand=nb)
+    width = max(int(cand.count.max()), 1)
+    idx = cand.idx[:, :width].contiguous()
+    valid = bi.valid.reshape(nb, blk.BLOCK)
+    hm = (hs / BOX).reshape(nb, blk.BLOCK).contiguous()
+    hm_blocks = torch.where(valid, hm, torch.zeros_like(hm))[:, None]
+    gdist, dkeep = fused_bounds(
+        bi.bb_lo, bi.bb_hi, torch.arange(nb, device=pos.device), idx,
+        hm.amax(dim=1), hm_blocks[:, 0].amax(dim=1), BOX, sb_mode=sb_mode)
+    return dict(
+        pos_t=bi.pos.reshape(nb, blk.BLOCK, 3).transpose(1, 2).contiguous(),
+        valid_t=valid.to(torch.float32)[:, None].contiguous(),
+        hm_blocks=hm_blocks.contiguous(), h_b3=hm[:, None].contiguous(),
+        cand=idx, cnt=cand.count, h0=hs.reshape(nb, blk.BLOCK).contiguous(),
+        cap=cap.reshape(nb, blk.BLOCK).contiguous(), hm=hm, gdist=gdist,
+        dkeep=dkeep, valid=valid, desnngb=DESNNGB[kernel])
+
+
+def curl_inputs(kernel, n, seed=11, device="cpu", sb_mode=True):
     """``stream_curl`` arguments for the cusp with a smooth vector
     potential (one per kernel) and wfac in [-1.5, -0.5) on real lanes:
-    (args, kw, valid)."""
+    (args, kw, valid); superblock lists, or block lists without
+    ``sb_mode``."""
     args, _, valid = wvt_inputs(kernel, False, n, seed=seed, device=device)
     _, cand, cnt, pos_t, h0, _, _, mpart, box = args
+    if not sb_mode:
+        c = class_inputs(kernel, n, False, seed=seed, device=device)
+        cand, cnt = c["cand"], c["cnt"]
     nb = pos_t.shape[0]
     p = pos_t / box
     if kernel == "wc6":
@@ -81,4 +123,4 @@ def curl_inputs(kernel, n, seed=11, device="cpu"):
         u, dtype=torch.float32, device=pos_t.device)), torch.zeros_like(h0))
     args = (src8, cand, cnt, pos_t, (h0 * 1.3).contiguous(),
             wfac.contiguous(), ap.contiguous(), mpart, box)
-    return args, dict(kernel=kernel), valid
+    return args, dict(kernel=kernel, sb_mode=sb_mode), valid

@@ -9,8 +9,9 @@ Pallas wrappers in superblock mode:
 * sources ``(nb, 4, 128)`` (x, y, z, hm) for the solve, ``(nb, 8, 128)``
   (x, y, z, valid, A0, A1, A2, pad) for the curl; a source lane with
   hm == 0 (valid == 0) takes part in no pair;
-* ``cand (S, M)`` int32 superblock ids, -1 padded; ``cnt (S,)`` int32 hit
-  counts, clamped to M here;
+* ``cand (S, M)`` int32 superblock ids, -1 padded (the curl also takes
+  block ids, its block-list mode); ``cnt (S,)`` int32 hit counts,
+  clamped to M here;
 * receivers ``xi (S, 3, 128)`` and per-lane ``(S, 128)`` rows.
 
 Each operator has two paths.  A CUDA tensor launches the hand-written
@@ -96,28 +97,22 @@ def _pad_superblocks(src_blocks):
         (pad,) + tuple(src_blocks.shape[1:]))])
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "stream_wvt_launch": [_P] * 8 + [_I] * 6 + [_F] * 5 + [_P],
-    "stream_curl_launch": [_P] * 8 + [_I] * 4 + [_F, _P],
-}
-
-
-def _entry(lib_name, fn_name):
-    """The C entry point of a compiled kernel library, typed."""
+def _launch(lib, args):
+    """Launch the C entry point ``<lib>_launch`` of csrc/<lib>.cu on the
+    current stream: a tensor (or None) is passed as a pointer, a Python
+    float as a C float, anything else as a C int; raises on a CUDA
+    error."""
     from .cuda_build import load
-    fn = getattr(load(lib_name), fn_name)
-    fn.argtypes = _ARGTYPES[fn_name]
+    fn = getattr(load(lib), f"{lib}_launch")
+    fn.argtypes = [ctypes.c_void_p if a is None or torch.is_tensor(a) else
+                   ctypes.c_float if isinstance(a, float) else ctypes.c_int
+                   for a in args] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = fn(*[a.data_ptr() if torch.is_tensor(a) else
+              a if a is None or isinstance(a, float) else int(a)
+              for a in args], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {rc}")
 
 
 # --------------------------------------------------------------------------
@@ -145,20 +140,12 @@ def stream_wvt(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart, boxsize, *,
             src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart, boxsize,
             kernel=kernel, desnngb=desnngb, n_sweeps=n_sweeps,
             do_disp=do_disp)
-    launch = _entry("stream_wvt", "stream_wvt_launch")
-    src = _pad_superblocks(src_blocks)
     out = torch.empty((S, BLOCK, 8), dtype=torch.float32, device=dev)
-    rc = launch(
-        _ptr(src), _ptr(cand), _ptr(cnt), _ptr(xi), _ptr(h0), _ptr(cap),
-        _ptr(hm_i), _ptr(out), ctypes.c_int(S), ctypes.c_int(M),
-        ctypes.c_int(nb), ctypes.c_int(_KIND[kernel]),
-        ctypes.c_int(int(bool(do_disp))), ctypes.c_int(int(n_sweeps)),
-        ctypes.c_float(mpart), ctypes.c_float(boxsize),
-        ctypes.c_float(desnngb), ctypes.c_float(_spec_win(desnngb)),
-        ctypes.c_float(_rho_corr(desnngb, mpart, kernel)), _stream())
-    if rc != 0:
-        raise RuntimeError(
-            f"stream_wvt kernel launch failed: CUDA error {rc}")
+    _launch("stream_wvt", [
+        _pad_superblocks(src_blocks), cand, cnt, xi, h0, cap, hm_i, out, S,
+        M, nb, _KIND[kernel], bool(do_disp), n_sweeps, float(mpart),
+        float(boxsize), float(desnngb), float(_spec_win(desnngb)),
+        float(_rho_corr(desnngb, mpart, kernel))])
     stream_wvt.launches += 1
     rho, h, vf, wk, done = (out[:, :, k] for k in range(5))
     return rho, h, vf, wk, done > 0.5, (out[:, :, 5:8] if do_disp else None)
@@ -167,39 +154,57 @@ def stream_wvt(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart, boxsize, *,
 stream_wvt.launches = 0
 
 
-def _member_gather(src_blocks, cand, cnt, rows_sel):
-    """Gather the source lanes of the listed superblocks of the receiver
-    rows ``rows_sel``: returns (C, R, L) sources with the hm / validity
-    row (row 3) zeroed on every lane the kernel skips (padded cand
-    entries, entries past cnt, members past nb)."""
-    nb = src_blocks.shape[0]
-    c_cand = cand[rows_sel].long()
+def list_entries(cand, nb, sb_mode):
+    """The source blocks of list entries: (C, E) block ids and their
+    validity, E = M (block ids) or M * SUPER (superblock ids, whose
+    members past nb are invalid).  A -1 entry is invalid wherever it
+    stands in a row."""
+    if sb_mode:
+        e = (torch.clamp(cand, min=0).long()[:, :, None] * SUPER
+             + torch.arange(SUPER, device=cand.device))
+        ok = (cand >= 0)[:, :, None] & (e < nb)
+        e, ok = e.reshape(e.shape[0], -1), ok.reshape(ok.shape[0], -1)
+    else:
+        e, ok = torch.clamp(cand, min=0).long(), cand >= 0
+    return torch.clamp(e, max=nb - 1), ok
+
+
+def gather_sources(src_blocks, e, ok):
+    """(C, R, E*128) source lanes of the entry blocks e (C, E), and the
+    (C, E*128) lane mask of the valid entries."""
+    g = src_blocks[e]                                          # (C,E,R,B)
+    g = g.permute(0, 2, 1, 3).reshape(g.shape[0], g.shape[2], -1)
+    return g, ok[:, :, None].expand(-1, -1, BLOCK).reshape(ok.shape[0], -1)
+
+
+def _member_gather(src_blocks, cand, cnt, rows_sel, sb_mode):
+    """Gather the source lanes of the listed superblocks (blocks without
+    ``sb_mode``) of the receiver rows ``rows_sel``: returns (C, R, L)
+    sources with the hm / validity row (row 3) zeroed on every lane the
+    kernel skips (padded cand entries, entries past cnt, members past
+    nb)."""
+    c_cand = cand[rows_sel]
     c_cnt = cnt[rows_sel].long()
     mc = max(int(c_cnt.max()), 1)
     c_cand = c_cand[:, :mc]
-    e = (torch.clamp(c_cand, min=0)[:, :, None] * SUPER
-         + torch.arange(SUPER, device=cand.device))           # (C, mc, 8)
     slot = torch.arange(mc, device=cand.device)
-    ok = ((c_cand >= 0) & (slot[None] < c_cnt[:, None]))[:, :, None] \
-        & (e < nb)
-    e = torch.clamp(e, max=nb - 1).reshape(e.shape[0], -1)     # (C, mc*8)
-    g = src_blocks[e]                                          # (C,mb,R,B)
-    g = g.permute(0, 2, 1, 3).reshape(g.shape[0], g.shape[2], -1)
-    okl = ok.reshape(ok.shape[0], -1, 1).expand(-1, -1, BLOCK).reshape(
-        ok.shape[0], -1)
+    c_cand = torch.where(slot[None] < c_cnt[:, None], c_cand,
+                         torch.full_like(c_cand, -1))
+    e, ok = list_entries(c_cand, src_blocks.shape[0], sb_mode)
+    g, okl = gather_sources(src_blocks, e, ok)
     g[:, 3] = torch.where(okl, g[:, 3], torch.zeros_like(g[:, 3]))
     return g
 
 
-def _row_chunks(cnt, budget):
+def _row_chunks(cnt, budget, per_entry=SUPER * BLOCK * BLOCK):
     """Consecutive receiver-row chunks whose (rows, 128, sources) pair
-    arrays stay within ``budget`` elements (rows are padded to the
-    chunk's longest list; one row may exceed the budget alone)."""
-    per_sb = SUPER * BLOCK * BLOCK
+    arrays stay within ``budget`` elements, for rows of ``cnt`` list
+    entries of ``per_entry`` pairs each (rows are padded to the chunk's
+    longest list; one row may exceed the budget alone)."""
     chunks, s0, widest = [], 0, 1
     for s, c in enumerate(cnt.tolist()):
         w = max(widest, c, 1)
-        if s > s0 and (s - s0 + 1) * w * per_sb > budget:
+        if s > s0 and (s - s0 + 1) * w * per_entry > budget:
             chunks.append((s0, s))
             s0, w = s, max(c, 1)
         widest = w
@@ -297,7 +302,7 @@ def _stream_wvt_reference(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
     out = torch.zeros((S, BLOCK, 8), dtype=f32, device=dev)
     for s0, s1 in _row_chunks(cnt, _PAIR_BUDGET[dev.type]):
         rows = torch.arange(s0, s1, device=dev)
-        g = _member_gather(src_blocks, cand, cnt, rows)       # (C, 4, L)
+        g = _member_gather(src_blocks, cand, cnt, rows, True)  # (C, 4, L)
         xs, hj = g[:, :3], g[:, 3][:, None, :]                # hj (C,1,L)
         vj = (hj > 0).to(f32)
         dx = _pair_dx(xi[s0:s1], xs, boxsize)
@@ -369,11 +374,13 @@ def _stream_wvt_reference(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
 # --------------------------------------------------------------------------
 
 def stream_curl(src_blocks, cand, cnt, xi, hsml, wfac, apot_t, mpart,
-                boxsize, *, kernel="wc6"):
+                boxsize, *, kernel="wc6", sb_mode=False):
     """B_i = wfac_i sum_j dW(r, h_i)/dr / r (dx x (A_i - A_j)) over
     r < h_i, r > 0, j valid (Price 2010 eq. 79, sph.c:216-300), with
     wfac = -m varHsmlFac / rho.  ``apot_t`` (S, 3, 128) is the receivers'
-    vector potential.  Returns (S, 128, 3)."""
+    vector potential.  ``cand`` holds block ids (the count-class
+    engine's lists) or, with ``sb_mode``, superblock ids (the stream
+    engine's lists and the far-tail rows).  Returns (S, 128, 3)."""
     dev, nb, S, M = _check_common(src_blocks, 8, cand, cnt, xi,
                                   dict(hsml=hsml, wfac=wfac))
     _check("apot_t", apot_t, torch.float32, (S, 3, BLOCK), dev)
@@ -382,18 +389,12 @@ def stream_curl(src_blocks, cand, cnt, xi, hsml, wfac, apot_t, mpart,
     if dev.type == "cpu":
         return _stream_curl_reference(src_blocks, cand, cnt, xi, hsml,
                                       wfac, apot_t, mpart, boxsize,
-                                      kernel=kernel)
-    launch = _entry("stream_curl", "stream_curl_launch")
-    src = _pad_superblocks(src_blocks)
+                                      kernel=kernel, sb_mode=sb_mode)
     out = torch.empty((S, BLOCK, 3), dtype=torch.float32, device=dev)
-    rc = launch(
-        _ptr(src), _ptr(cand), _ptr(cnt), _ptr(xi), _ptr(hsml), _ptr(wfac),
-        _ptr(apot_t), _ptr(out), ctypes.c_int(S), ctypes.c_int(M),
-        ctypes.c_int(nb), ctypes.c_int(_KIND[kernel]),
-        ctypes.c_float(boxsize), _stream())
-    if rc != 0:
-        raise RuntimeError(
-            f"stream_curl kernel launch failed: CUDA error {rc}")
+    _launch("stream_curl", [
+        _pad_superblocks(src_blocks) if sb_mode else src_blocks, cand, cnt,
+        xi, hsml, wfac, apot_t, out, S, M, nb, _KIND[kernel], bool(sb_mode),
+        float(boxsize)])
     stream_curl.launches += 1
     return out
 
@@ -402,15 +403,17 @@ stream_curl.launches = 0
 
 
 def _stream_curl_reference(src_blocks, cand, cnt, xi, hsml, wfac, apot_t,
-                           mpart, boxsize, *, kernel):
+                           mpart, boxsize, *, kernel, sb_mode):
     """Plain PyTorch version of ``stream_curl``."""
     S, M = cand.shape
     dev = src_blocks.device
     cnt = torch.clamp(cnt, max=M)
     out = torch.zeros((S, BLOCK, 3), dtype=torch.float32, device=dev)
-    for s0, s1 in _row_chunks(cnt, _PAIR_BUDGET[dev.type]):
+    per_entry = (SUPER if sb_mode else 1) * BLOCK * BLOCK
+    for s0, s1 in _row_chunks(cnt, _PAIR_BUDGET[dev.type], per_entry):
         rows = torch.arange(s0, s1, device=dev)
-        g = _member_gather(src_blocks, cand, cnt, rows)       # (C, 8, L)
+        g = _member_gather(src_blocks, cand, cnt, rows,
+                           sb_mode)                           # (C, 8, L)
         vj = g[:, 3][:, None, :]
         dx = _pair_dx(xi[s0:s1], g[:, :3], boxsize)
         r2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]

@@ -30,9 +30,13 @@ def _barrier(device):
         torch.cuda.synchronize(device)
 
 
-def make_ics(cfg: Config, *, device, seed: Optional[int] = None,
-             write: bool = True, log=stage_log):
-    """Run the full pipeline on ``device``; returns (scene, particles)."""
+def make_ics(cfg: Config, *, device, engine: str = "stream",
+             seed: Optional[int] = None, write: bool = True, log=stage_log):
+    """Run the full pipeline on ``device`` with the neighbour ``engine``
+    ("stream" or "classed", models/sph.py); returns (scene,
+    particles)."""
+    from .models.sph import check_engine
+    check_engine(engine)
     device = torch.device(device)
     if cfg.substructure:
         raise NotImplementedError(
@@ -67,7 +71,8 @@ def make_ics(cfg: Config, *, device, seed: Optional[int] = None,
     if not scene.dm_only:
         from .models import bfield, sph, temperature, wvt
         parts, wvt_fresh = wvt.regularise_sph_particles(scene, ha, parts,
-                                                        log=log)
+                                                        log=log,
+                                                        engine=engine)
         if wvt_fresh:
             # the loop stopped before a final move: parts already hold
             # the full-contract density solve at the final positions
@@ -77,12 +82,14 @@ def make_ics(cfg: Config, *, device, seed: Optional[int] = None,
                 contract_frac=sph.last_contract_frac)
         else:
             parts, nstate = sph.find_sph_quantities(scene, ha, parts,
-                                                    return_state=True)
+                                                    return_state=True,
+                                                    engine=engine)
             _barrier(device)
             log("sph_quantities",
                 contract_frac=sph.last_contract_frac)
         if cfg.bfld_norm:
-            parts = bfield.make_magnetic_field(scene, ha, parts, nstate)
+            parts = bfield.make_magnetic_field(scene, ha, parts, nstate,
+                                               engine=engine)
             _barrier(device)
             log("magnetic_field")
         cool_core = ((cfg.rho0_fac, cfg.rc_fac)

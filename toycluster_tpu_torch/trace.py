@@ -1,6 +1,7 @@
 """Device trace of the main path on one CUDA card::
 
     python -m toycluster_tpu_torch.trace <parfile> [field=value ...]
+        [engine=stream|classed]
 
 Runs ``make_ics`` on ``cuda`` twice in one process, writing no snapshot:
 once to build the kernels and warm the allocator, then under
@@ -12,7 +13,7 @@ once to build the kernels and warm the allocator, then under
 * the device time and call count of each device op name, largest first;
 * the wall time of each WVT iteration (from the stage log) and the
   saturated lanes of each retry;
-* the peak device memory and the launch counts of the stream kernels.
+* the peak device memory and the launch counts of the pair kernels.
 
 Fails when the profiler recorded no device op.
 """
@@ -27,7 +28,7 @@ import torch
 
 from .cli import _coerce
 from .config import parse_par_file
-from .ops import stream_pair
+from .ops import class_pair, stream_pair
 from .pipeline import make_ics
 from .utils import logging as tlog
 
@@ -47,25 +48,31 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("Usage: python -m toycluster_tpu_torch.trace <parameterfile> "
-              "[field=value...]", file=sys.stderr)
+              "[field=value...] [engine=stream|classed]", file=sys.stderr)
         return 1
     if not torch.cuda.is_available():
         raise RuntimeError("the trace needs a CUDA device")
     overrides = dict(tok.partition("=")[::2] for tok in argv[1:])
+    engine = overrides.pop("engine", "stream")
     cfg = parse_par_file(argv[0], **{k: _coerce(v)
                                      for k, v in overrides.items()})
     log = tlog.silent_log
-    make_ics(cfg, device="cuda", write=False, log=log)
+    make_ics(cfg, device="cuda", engine=engine, write=False, log=log)
 
     tlog.METRICS.clear()
-    stream_pair.stream_wvt.launches = stream_pair.stream_curl.launches = 0
+    kernels = (stream_pair.stream_wvt, stream_pair.stream_curl,
+               class_pair.solve_density, class_pair.wvt_displacement,
+               class_pair.fused_wvt)
+    for k in kernels:
+        k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        make_ics(cfg, device="cuda", write=False, log=tlog.stage_log)
+        make_ics(cfg, device="cuda", engine=engine, write=False,
+                 log=tlog.stage_log)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -97,8 +104,7 @@ def main(argv=None):
         prev = rec["t"]
     print(f"wvt iteration wall s: {iters}")
     print(f"peak device memory {peak / 2**30:.4f} GiB; launches "
-          f"stream_wvt={stream_pair.stream_wvt.launches} "
-          f"stream_curl={stream_pair.stream_curl.launches}")
+          + " ".join(f"{k.__name__}={k.launches}" for k in kernels))
     return 0
 
 
