@@ -14,7 +14,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the displacement), stream_curl (wc6 and m4, superblock and block
    lists), solve_density, wvt_displacement and fused_wvt (wc6 and m4,
    block and superblock lists; fused_wvt with and without its distance
-   bounds, which must give bit-identical results).
+   bounds, which must give bit-identical results).  For stream_wvt it
+   also checks that its member pruning and its hoisted wrap change no
+   bit (the kernel against itself with prune=False, hoist=False), prints
+   the listed, kept and swept members and the sweeps per row (median,
+   p99, max, from the kernel's stats) and times the kernel as it runs,
+   without the hoisted wrap, and without pruning and hoisting.
 4. Drives the CLI main path, ``toycluster_tpu_torch.cli.main``, on the
    repository's cluster.par (Ntotal 1e6, WC6, B field on) with
    device=cuda twice, with every launch counter set to 0 just before
@@ -28,7 +33,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    per-stage wall times and the WVT particle updates per second of each
    run.
 5. Holds each kernel against its plain version again on the inputs of
-   its first main-path call, and times both there with CUDA events.
+   its first main-path call (for stream_wvt with the checks of step 3),
+   times both there with CUDA events, and computes each kernel's bound:
+   the larger of its fp32 operations over the card's fp32 peak and its
+   bytes (inputs read once, outputs written once) over the HBM peak,
+   with the operations counted from this run's data (the members the
+   chunk test keeps for the stream kernels, the listed blocks for the
+   count-class kernels, the sweeps the kernel or the plain version took,
+   and the periodic wrap only on the rows whose reach leaves the box).
 
 Prints the kernel record and the card line before the last line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits nonzero
@@ -60,6 +72,21 @@ KERNELS = (
 )
 LIBS = ("stream_wvt", "stream_curl", "solve_density", "wvt_displacement",
         "fused_wvt")
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): fp32 outside the tensor cores, and HBM3.
+PEAK_FP32 = 67e12
+PEAK_HBM = 3.35e12
+PAIRS = 128 * 128       # pairs of one receiver block and one source block
+# fp32 operations of one evaluated pair on the path of a pair out of
+# range, counted from the kernels' sources (an FMA counts 2): the
+# separation (3 subtractions; r2, a mul and 2 FMAs), the per-pair wrap
+# (per axis a mul, a rint and an FMA), and per kernel what precedes its
+# range test.  The few percent of pairs within range cost more and are
+# not counted: the bound is a lower bound.
+OPS_DIST, OPS_WRAP = 8, 12
+OPS_DENS = {"wc6": 1, "m4": 2}  # r2 / h^2; M4: sqrt and r / h
+OPS_UNION = 7                   # rsqrt, max, r, r / h, hbar (2), hbar^2
+OPS_DISP = 6                    # to box units (3), hbar (2), hbar^2
 
 
 def fail(msg):
@@ -150,53 +177,176 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if hasattr(t, "element_size"))
+
+
+def bound(ops, n_bytes):
+    """(bound_ms, bound_by): the larger of ops / fp32 peak and bytes /
+    HBM peak."""
+    t_ops, t_bytes = ops / PEAK_FP32, n_bytes / PEAK_HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def quantiles(torch, x):
+    """median, p99 and max of a per-row count."""
+    x = x.double()
+    return (float(torch.quantile(x, 0.5)), float(torch.quantile(x, 0.99)),
+            float(x.max()))
+
+
+def dist_ops(sp, xi, r_pair, box):
+    """(S,) fp32 operations of one pair's separation per receiver row of
+    positions xi (S, 3, 128) and largest pair range r_pair (S,): the wrap
+    counts only where the row's reach leaves the box (sp.interior_rows;
+    elsewhere no pair in range needs it)."""
+    return OPS_DIST + OPS_WRAP * (~sp.interior_rows(xi, r_pair, box)).double()
+
+
+def wvt_bound(torch, sp, args, kw, st):
+    """stream_wvt's bound from its stats: the union pass over the members
+    kept for either consumer, the later sweeps over the members kept for
+    the density, without the wrap on the rows that skip it."""
+    src, cand, cnt, xi, h0, cap, hm_i, _, box = args
+    do_disp = kw.get("do_disp", True)
+    _, _, flag = sp.prune_tables(src, xi, cap, hm_i, box, do_disp=do_disp)
+    dist = OPS_DIST + OPS_WRAP * (1 - flag.double())
+    dens = OPS_DENS[kw.get("kernel", "wc6")]
+    sweeps, n_u, n_d = (st[:, k].double() for k in range(3))
+    ops = PAIRS * float((n_u * (dist + (OPS_UNION if do_disp else dens))
+                         + n_d * (sweeps - 1) * (dist + dens)).sum())
+    return bound(ops, nbytes(src, cand, cnt, xi, h0, cap, hm_i)
+                 + cand.shape[0] * 128 * 8 * 4) + (ops,)
+
+
+def listed_blocks(torch, sp, cand, cnt, nb, sb_mode):
+    """Per row, the valid source blocks of the first min(cnt, M) list
+    entries (all entries without cnt)."""
+    if cnt is not None:
+        slot = torch.arange(cand.shape[1], device=cand.device)
+        cand = torch.where(slot[None] < cnt[:, None], cand,
+                           torch.full_like(cand, -1))
+    return sp.list_entries(cand, nb, sb_mode)[1]
+
+
 # -------------------------------------------------- kernel vs plain checks
 
-def check_wvt(torch, sp, args, kw, valid):
-    got = sp.stream_wvt(*args, **kw)
+def check_wvt(torch, sp, args, kw, valid, tag):
+    """stream_wvt against its plain version; pruned against unpruned and
+    hoisted against wrapped, bit for bit; the per-row statistics; kernel
+    times with and without pruning and hoisting, and the plain time."""
+    S = args[1].shape[0]
+    st = torch.zeros((S, 4), dtype=torch.int32, device=args[0].device)
+    got = sp.stream_wvt(*args, **kw, stats=st)
+    full = sp.stream_wvt(*args, **kw, prune=False, hoist=False)
     torch.cuda.synchronize()
+    for a, b in zip(got, full):
+        if not (a is None and b is None or torch.equal(a, b)):
+            fail(f"{tag} stream_wvt: pruning or the hoisted wrap changed "
+                 f"the result")
     ref = sp._stream_wvt_reference(*args, n_sweeps=sp.N_SWEEPS, **kw)
     err = compare_wvt(torch, got, ref, valid, kw["desnngb"],
                       kw.get("do_disp", True))
-    return err, event_ms(torch, lambda: sp.stream_wvt(*args, **kw), 5), \
-        event_ms(torch, lambda: sp._stream_wvt_reference(
-            *args, n_sweeps=sp.N_SWEEPS, **kw), 1)
+    n_u, n_d, listed = st[:, 1], st[:, 2], st[:, 3]
+    if not int(n_u.sum()) < int(listed.sum()):
+        fail(f"{tag} stream_wvt: the member test kept every listed member")
+    swept = n_u + n_d * (st[:, 0] - 1)
+    _, _, flag = sp.prune_tables(args[0], args[3], args[5], args[6],
+                                 args[8], do_disp=kw.get("do_disp", True))
+    say(f"{tag} stream_wvt members per row (median, p99, max): listed "
+        f"{quantiles(torch, listed)}, kept {quantiles(torch, n_u)}, kept "
+        f"for the density {quantiles(torch, n_d)}, swept "
+        f"{quantiles(torch, swept)}; sweeps {quantiles(torch, st[:, 0])}; "
+        f"kept/listed {int(n_u.sum()) / int(listed.sum()):.4f}; rows "
+        f"without the wrap {int(flag.sum())}/{S}; pruned and unpruned "
+        f"bit-identical")
+    res = dict(err=err, stats=st)
+    res["ms"] = event_ms(torch, lambda: sp.stream_wvt(*args, **kw), 5)
+    res["ms_unpruned"] = event_ms(torch, lambda: sp.stream_wvt(
+        *args, **kw, prune=False, hoist=False), 3)
+    res["ms_unhoisted"] = event_ms(torch, lambda: sp.stream_wvt(
+        *args, **kw, hoist=False), 5)
+    res["plain_ms"] = event_ms(torch, lambda: sp._stream_wvt_reference(
+        *args, n_sweeps=sp.N_SWEEPS, **kw), 1)
+    res["bound_ms"], res["bound_by"], ops = wvt_bound(torch, sp, args, kw,
+                                                      st)
+    say(f"{tag} stream_wvt: kernel_ms={res['ms']:.6g} unhoisted_ms={res['ms_unhoisted']:.6g} unpruned_unhoisted_ms="
+        f"{res['ms_unpruned']:.6g} plain_ms={res['plain_ms']:.6g} "
+        f"bound_ms={res['bound_ms']:.6g} ({res['bound_by']}, "
+        f"{ops:.6g} fp32 operations)")
+    return res
 
 
 def check_curl(torch, sp, args, kw, valid):
+    """stream_curl against its plain version; its bound counts the pairs
+    of the member blocks that stream_wvt's chunk test keeps at the curl's
+    range (r < hsml_i), as the TPU curl prunes them."""
     got = sp.stream_curl(*args, **kw)
     torch.cuda.synchronize()
     ref = sp._stream_curl_reference(*args, **kw)
-    err = compare_curl(torch, got, ref, valid)
-    return err, event_ms(torch, lambda: sp.stream_curl(*args, **kw), 5), \
-        event_ms(torch, lambda: sp._stream_curl_reference(*args, **kw), 1)
+    src, cand, cnt, xi, hsml = args[:5]
+    box = args[8]
+    rtab = sp._recv_tab(sp.build_chunk_tab(xi, hsml, box), hsml, None)
+    kept, _, listed = sp._keep_rows(
+        rtab, sp.build_chunk_tab(src[:, :3], src[:, 3], box), cand, cnt, box,
+        False, sb_mode=kw.get("sb_mode", False))
+    kept = kept.sum(dim=1)
+    ops = PAIRS * float((kept * dist_ops(sp, xi, hsml.amax(dim=1),
+                                         box)).sum())
+    say(f"  stream_curl sb_mode={kw.get('sb_mode', False)}: the chunk test "
+        f"keeps {int(kept.sum())} of {int(listed.sum())} listed blocks")
+    b_ms, b_by = bound(ops, nbytes(*args) + cand.shape[0] * 128 * 3 * 4)
+    return dict(err=compare_curl(torch, got, ref, valid),
+                ms=event_ms(torch, lambda: sp.stream_curl(*args, **kw), 5),
+                plain_ms=event_ms(torch, lambda: sp._stream_curl_reference(
+                    *args, **kw), 1), bound_ms=b_ms, bound_by=b_by)
 
 
-def check_solve(torch, cp, args, kw, valid):
+def check_solve(torch, sp, cp, args, kw, valid):
     kw = dict(kw)
     n_sweeps = kw.pop("n_sweeps", cp.SOLVE_SWEEPS)
     got = cp.solve_density(*args, n_sweeps=n_sweeps, **kw)
     torch.cuda.synchronize()
-    ref = cp._solve_density_reference(*args, n_sweeps=n_sweeps, **kw)
+    pos, _, cand = args[:3]
+    sweeps = torch.zeros(cand.shape[0], dtype=torch.int32,
+                         device=cand.device)
+    ref = cp._solve_density_reference(*args, n_sweeps=n_sweeps, **kw,
+                                      sweeps=sweeps)
     err = compare_wvt(torch, got, unpack(ref, False), valid, kw["desnngb"],
                       False, "solve_density")
-    return err, event_ms(torch, lambda: cp.solve_density(
-        *args, n_sweeps=n_sweeps, **kw), 5), event_ms(
+    xi, cap, box = args[3], args[5], args[7]
+    blocks = listed_blocks(torch, sp, cand, None, pos.shape[0],
+                           kw.get("sb_mode", False)).sum(dim=1)
+    ops = PAIRS * float((blocks * sweeps * (dist_ops(
+        sp, xi, cap.amax(dim=1), box) + OPS_DENS[kw["kernel"]])).sum())
+    b_ms, b_by = bound(ops, nbytes(*args) + cand.shape[0] * 128 * 5 * 4)
+    return dict(err=err, ms=event_ms(torch, lambda: cp.solve_density(
+        *args, n_sweeps=n_sweeps, **kw), 5), plain_ms=event_ms(
         torch, lambda: cp._solve_density_reference(
-            *args, n_sweeps=n_sweeps, **kw), 1)
+            *args, n_sweeps=n_sweeps, **kw), 1), bound_ms=b_ms, bound_by=b_by)
 
 
-def check_disp(torch, cp, args, kw, valid):
+def check_disp(torch, sp, cp, args, kw, valid):
     got = cp.wvt_displacement(*args, **kw)
     torch.cuda.synchronize()
     ref = cp._wvt_displacement_reference(*args, **kw)
-    err = compare_disp(torch, got, ref, valid, "wvt_displacement")
-    return err, event_ms(torch, lambda: cp.wvt_displacement(*args, **kw),
-                         5), event_ms(
-        torch, lambda: cp._wvt_displacement_reference(*args, **kw), 1)
+    pos, h_blocks, cand, xi, h_i, box = (args[k] for k in (0, 2, 3, 4, 5, 7))
+    blocks = listed_blocks(torch, sp, cand, None, pos.shape[0],
+                           kw.get("sb_mode", False)).sum(dim=1)
+    r_pair = 0.5 * (h_i.amax(dim=1) + h_blocks.max()) * box
+    ops = PAIRS * float((blocks * (dist_ops(sp, xi, r_pair, box)
+                                   + OPS_DISP)).sum())
+    b_ms, b_by = bound(ops, nbytes(*args) + cand.shape[0] * 128 * 3 * 4)
+    return dict(
+        err=compare_disp(torch, got, ref, valid, "wvt_displacement"),
+        ms=event_ms(torch, lambda: cp.wvt_displacement(*args, **kw), 5),
+        plain_ms=event_ms(torch, lambda: cp._wvt_displacement_reference(
+            *args, **kw), 1), bound_ms=b_ms, bound_by=b_by)
 
 
-def check_fused(torch, cp, args, kw, valid):
+def check_fused(torch, sp, cp, args, kw, valid):
     """Kernel vs plain with the caller's bounds, and bit-identical
     kernel outputs with and without them."""
     kw = dict(kw)
@@ -210,11 +360,30 @@ def check_fused(torch, cp, args, kw, valid):
     for a, b in zip(got, unbounded):
         if not torch.equal(a, b):
             fail("fused_wvt: the distance bounds changed the result")
-    ref = cp._fused_wvt_reference(*args, **full)
+    pos, hm_blocks, cand, cnt, xi, _, cap, hm_i, _, box = args
+    sweeps = torch.zeros(cand.shape[0], dtype=torch.int32,
+                         device=cand.device)
+    ref = cp._fused_wvt_reference(*args, **full, sweeps=sweeps)
     err = compare_wvt(torch, got, unpack(ref, full["do_disp"]), valid,
                       kw["desnngb"], full["do_disp"], "fused_wvt")
-    return err, event_ms(torch, lambda: cp.fused_wvt(*args, **full), 5), \
-        event_ms(torch, lambda: cp._fused_wvt_reference(*args, **full), 1)
+    ok = listed_blocks(torch, sp, cand, cnt, pos.shape[0], full["sb_mode"])
+    dens, disp = ok, ok if full["do_disp"] else torch.zeros_like(ok)
+    if full["gdist"] is not None:
+        dens = ok & (full["gdist"] <= cap.amax(dim=1)[:, None])
+    if full["dkeep"] is not None:
+        disp = disp & full["dkeep"]
+    r_disp = 0.5 * (hm_i.amax(dim=1) + hm_blocks.max()) * box
+    ops = PAIRS * float(
+        (dens.sum(dim=1) * sweeps * (dist_ops(sp, xi, cap.amax(dim=1), box)
+                                     + OPS_DENS[kw["kernel"]])).sum()
+        + (disp.sum(dim=1) * (dist_ops(sp, xi, r_disp, box)
+                              + OPS_DISP)).sum())
+    b_ms, b_by = bound(ops, nbytes(*args, full["gdist"], full["dkeep"])
+                       + cand.shape[0] * 128 * 8 * 4)
+    return dict(err=err, ms=event_ms(torch, lambda: cp.fused_wvt(
+        *args, **full), 5), plain_ms=event_ms(
+        torch, lambda: cp._fused_wvt_reference(*args, **full), 1),
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def check_kernels_on_cusp(torch, sp, cp, device):
@@ -224,42 +393,41 @@ def check_kernels_on_cusp(torch, sp, cp, device):
         for do_disp in (True, False):
             args, kw, valid = cusp.wvt_inputs(kernel, do_disp, n,
                                               device=device)
-            err, k_ms, p_ms = check_wvt(torch, sp, args, kw, valid)
-            say(f"cusp 1e5 stream_wvt kernel={kernel} do_disp={do_disp}: "
-                f"rows={args[0].shape[0]} width={args[1].shape[1]} "
-                f"max|dwk|={err:.3g} kernel_ms={k_ms:.3f} "
-                f"plain_ms={p_ms:.3f}")
+            check_wvt(torch, sp, args, kw, valid,
+                      f"cusp 1e5 kernel={kernel} do_disp={do_disp} rows="
+                      f"{args[0].shape[0]} width={args[1].shape[1]}:")
         for sb_mode in (True, False):
             args, kw, valid = cusp.curl_inputs(kernel, n, device=device,
                                                sb_mode=sb_mode)
-            err, k_ms, p_ms = check_curl(torch, sp, args, kw, valid)
+            r = check_curl(torch, sp, args, kw, valid)
             say(f"cusp 1e5 stream_curl kernel={kernel} sb_mode={sb_mode}: "
-                f"width={args[1].shape[1]} max|dB|/max|B|={err:.3g} "
-                f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f}")
+                f"width={args[1].shape[1]} max|dB|/max|B|={r['err']:.3g} "
+                f"kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f}")
         for sb_mode in (False, True):
             c = cusp.class_inputs(kernel, n, sb_mode, device=device)
             v = c["valid"]
             kw = dict(kernel=kernel, desnngb=c["desnngb"], sb_mode=sb_mode)
             tag = (f"kernel={kernel} sb_mode={sb_mode} rows="
                    f"{c['cand'].shape[0]} width={c['cand'].shape[1]}")
-            err, k_ms, p_ms = check_solve(torch, cp, (
+            r = check_solve(torch, sp, cp, (
                 c["pos_t"], c["valid_t"], c["cand"], c["pos_t"], c["h0"],
                 c["cap"], 1.0, cusp.BOX), kw, v)
-            say(f"cusp 1e5 solve_density {tag}: max|dwk|={err:.3g} "
-                f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f}")
-            err, k_ms, p_ms = check_disp(torch, cp, (
+            say(f"cusp 1e5 solve_density {tag}: max|dwk|={r['err']:.3g} "
+                f"kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f}")
+            r = check_disp(torch, sp, cp, (
                 c["pos_t"], c["valid_t"], c["h_b3"], c["cand"], c["pos_t"],
                 c["hm"], 1.0, cusp.BOX), dict(kernel=kernel,
                                               sb_mode=sb_mode), v)
-            say(f"cusp 1e5 wvt_displacement {tag}: max|ddelta|={err:.3g} "
-                f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.3f}")
-            err, k_ms, p_ms = check_fused(torch, cp, (
+            say(f"cusp 1e5 wvt_displacement {tag}: max|ddelta|="
+                f"{r['err']:.3g} kernel_ms={r['ms']:.3f} "
+                f"plain_ms={r['plain_ms']:.3f}")
+            r = check_fused(torch, sp, cp, (
                 c["pos_t"], c["hm_blocks"], c["cand"], c["cnt"], c["pos_t"],
                 c["h0"], c["cap"], c["hm"], 1.0, cusp.BOX),
                 dict(kw, gdist=c["gdist"], dkeep=c["dkeep"]), v)
             say(f"cusp 1e5 fused_wvt {tag}: bounds bit-identical, "
-                f"max|dwk|={err:.3g} kernel_ms={k_ms:.3f} "
-                f"plain_ms={p_ms:.3f}")
+                f"max|dwk|={r['err']:.3g} kernel_ms={r['ms']:.3f} "
+                f"plain_ms={r['plain_ms']:.3f}")
 
 
 # --------------------------------------------------------------- main path
@@ -386,32 +554,37 @@ def run_main_path(torch, sp, cp, tmp, engine):
 
 def time_on_main_path_inputs(torch, sp, cp, recorded):
     """Kernel vs plain on the inputs of each kernel's first main-path
-    call: agreement and CUDA-event times.  These launches come after the
-    counted runs."""
+    call: agreement, CUDA-event times and bounds.  These launches come
+    after the counted runs."""
     res = {}
     args, kw = recorded["stream_wvt"]
-    res["stream_wvt"] = check_wvt(torch, sp, args, kw,
-                                  (args[0][:, 3, :] > 0))
+    res["stream_wvt"] = check_wvt(
+        torch, sp, args, kw, (args[0][:, 3, :] > 0),
+        f"main-path rows={args[1].shape[0]} width={args[1].shape[1]}:")
     # receiver lanes with a nonzero wfac are the curl's valid ones; the
     # count-class operators are held on every receiver lane
-    for name, check, mod, cand_arg, valid_of in (
-            ("stream_wvt", None, sp, 1, None),
-            ("stream_curl", check_curl, sp, 1, lambda a: a[5] != 0),
-            ("stream_curl_blocks", check_curl, sp, 1, lambda a: a[5] != 0),
-            ("solve_density", check_solve, cp, 2,
+    for name, check, cand_arg, valid_of in (
+            ("stream_wvt", None, 1, None),
+            ("stream_curl", check_curl, 1, lambda a: a[5] != 0),
+            ("stream_curl_blocks", check_curl, 1, lambda a: a[5] != 0),
+            ("solve_density", check_solve, 2,
              lambda a: torch.ones_like(a[4], dtype=torch.bool)),
-            ("wvt_displacement", check_disp, cp, 3,
+            ("wvt_displacement", check_disp, 3,
              lambda a: torch.ones_like(a[5], dtype=torch.bool)),
-            ("fused_wvt", check_fused, cp, 2,
+            ("fused_wvt", check_fused, 2,
              lambda a: torch.ones_like(a[5], dtype=torch.bool))):
         args, kw = recorded[name]
-        if check is not None:
-            res[name] = check(torch, mod, args, kw, valid_of(args))
+        if check is check_curl:
+            res[name] = check(torch, sp, args, kw, valid_of(args))
+        elif check is not None:
+            res[name] = check(torch, sp, cp, args, kw, valid_of(args))
         cand = args[cand_arg]
+        r = res[name]
         say(f"main-path {name}: rows={cand.shape[0]} width={cand.shape[1]} "
             f"sb_mode={kw.get('sb_mode', name == 'stream_wvt')} "
-            f"max_err={res[name][0]:.6g} kernel_ms={res[name][1]:.6g} "
-            f"plain_ms={res[name][2]:.6g}")
+            f"max_err={r['err']:.6g} kernel_ms={r['ms']:.6g} "
+            f"plain_ms={r['plain_ms']:.6g} bound_ms={r['bound_ms']:.6g} "
+            f"({r['bound_by']})")
     return res
 
 
@@ -460,14 +633,21 @@ def main():
                     fail(f"no {name} call was recorded")
                 recorded[name] = run_recorded[name]
     res = time_on_main_path_inputs(torch, sp, cp, recorded)
+    # no single PyTorch call computes a per-lane h solve or an SPH pair
+    # sum over candidate lists: library_ms is null for every kernel
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{lib}.cu",
          "replaces": rep, "launches": launches[name],
-         "max_abs_err": res[name][0], "ms": res[name][1],
-         "plain_ms": res[name][2]}
+         "max_abs_err": res[name]["err"], "ms": res[name]["ms"],
+         "plain_ms": res[name]["plain_ms"],
+         "bound_ms": res[name]["bound_ms"],
+         "bound_by": res[name]["bound_by"], "library_ms": None}
         for name, lib, rep in KERNELS]}
+    # stream_wvt without hoisting, and without pruning and hoisting
+    for key in ("ms_unhoisted", "ms_unpruned"):
+        record["kernels"][0][key] = res["stream_wvt"][key]
     for k in record["kernels"]:
-        for key in ("max_abs_err", "ms", "plain_ms"):
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):
                 fail(f"{k['name']} {key} is not finite")
     say(card)

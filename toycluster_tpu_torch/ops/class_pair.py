@@ -153,10 +153,11 @@ solve_density.launches = 0
 
 def _solve_density_reference(pos_blocks, valid_blocks, cand, xi, h0, cap,
                              mpart, boxsize, *, kernel, desnngb, n_sweeps,
-                             sb_mode):
+                             sb_mode, sweeps=None):
     """Plain PyTorch version of ``solve_density``: chunks of receiver
     rows, their listed source blocks gathered, the per-block sweep loop
-    as a per-row mask."""
+    as a per-row mask.  ``sweeps``, an optional (S,) int32 output,
+    receives each row's measuring sweeps."""
     S = cand.shape[0]
     nb = pos_blocks.shape[0]
     src = torch.cat([pos_blocks, valid_blocks], dim=1)
@@ -176,11 +177,15 @@ def _solve_density_reference(pos_blocks, valid_blocks, cand, xi, h0, cap,
         zero = torch.zeros_like(h)
         state = (0, h, h, zero, c_cap, zero)
         active = torch.ones(s1 - s0, dtype=torch.bool, device=h.device)
+        if sweeps is not None:
+            sweeps[s0:s1] = 1
         for k in range(n_sweeps - 1):
             # a block whose lanes are all done skips to the last sweep
             active = active & ~(state[5] > 0.5).all(dim=1)
             if not bool(active.any()):
                 break
+            if sweeps is not None:
+                sweeps[s0:s1] += active.to(torch.int32)
             acc = _dens_sums(kernel, r2, vj, state[1])
             new = _update(kernel, state, acc, c_cap, mpart, desnngb, 0.0)
             a = active[:, None]
@@ -319,10 +324,11 @@ fused_wvt.launches = 0
 
 def _fused_wvt_reference(pos_blocks, hm_blocks, cand, cnt, xi, h0, cap,
                          hm_i, mpart, boxsize, *, kernel, desnngb, n_sweeps,
-                         sb_mode, do_disp, gdist, dkeep):
+                         sb_mode, do_disp, gdist, dkeep, sweeps=None):
     """Plain PyTorch version of ``fused_wvt``.  The bounds mask the
     skipped blocks' pairs, so a bound that skipped a pair in range would
-    change the result."""
+    change the result.  ``sweeps``, an optional (S,) int32 output,
+    receives each row's density sweeps."""
     S, M = cand.shape
     nb = pos_blocks.shape[0]
     dev = pos_blocks.device
@@ -367,8 +373,12 @@ def _fused_wvt_reference(pos_blocks, hm_blocks, cand, cnt, xi, h0, cap,
         state = (0, h, h, zero, c_cap, zero)
         acc = (zero, zero)
         active = cnt[s0:s1] > 0
+        if sweeps is not None:
+            sweeps[s0:s1] = 0
         k = 0
         while k < n_sweeps and bool(active.any()):
+            if sweeps is not None:
+                sweeps[s0:s1] += active.to(torch.int32)
             acc_n = _dens_sums(kernel, r2, vj, state[1])
             new = _update(kernel, state, acc_n, c_cap, mpart, desnngb, 0.0)
             a = active[:, None]

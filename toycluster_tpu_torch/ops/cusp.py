@@ -22,24 +22,27 @@ BOX = 1000.0
 DESNNGB = {"wc6": 64, "m4": 50}
 
 
-def cusp_points(n, seed):
-    """(pos (n, 3), h0 (n,)) float32 NumPy arrays."""
+def cusp_points(n, seed, centre=BOX / 2):
+    """(pos (n, 3), h0 (n,)) float32 NumPy arrays, the cusp centred on
+    ``centre`` (at 0 it lies across the periodic edge on every axis)."""
     rng = np.random.default_rng(seed)
     r = np.clip(80.0 * (rng.random(n) ** 2 / (1 - rng.random(n) * 0.7)),
                 0, 400.0)
     u = rng.normal(size=(n, 3))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
-    pos = ((BOX / 2 + r[:, None] * u) % BOX).astype(np.float32)
-    rr = np.linalg.norm(pos - BOX / 2, axis=1)
+    pos = ((centre + r[:, None] * u) % BOX).astype(np.float32)
+    d = pos - centre
+    rr = np.linalg.norm(d - BOX * np.round(d / BOX), axis=1)
     h0 = np.clip(8.0 + rr * 0.2, 8.0, 90.0) * (1500.0 / n) ** (1 / 3)
     return pos, h0.astype(np.float32)
 
 
-def wvt_inputs(kernel, do_disp, n, seed=7, device="cpu"):
+def wvt_inputs(kernel, do_disp, n, seed=7, device="cpu", centre=BOX / 2):
     """``stream_wvt`` arguments for the cusp: (args, kw, valid), with
     superblock lists over every receiver row (cap = 3 h0) and valid the
     (S, 128) mask of real lanes."""
-    pos, h0 = (torch.as_tensor(a, device=device) for a in cusp_points(n, seed))
+    pos, h0 = (torch.as_tensor(a, device=device)
+               for a in cusp_points(n, seed, centre))
     bi = blk.build_blocks(pos, BOX)
     nb = bi.n_blocks
     hs = blk.pad_rows(h0[bi.order], bi.n_padded)

@@ -15,12 +15,18 @@ Pallas wrappers in superblock mode:
 * receivers ``xi (S, 3, 128)`` and per-lane ``(S, 128)`` rows.
 
 Each operator has two paths.  A CUDA tensor launches the hand-written
-kernel of ``csrc/`` (one CTA of 128 threads per receiver block) and
-counts the launch in ``stream_wvt.launches`` / ``stream_curl.launches``;
-a CPU tensor runs the plain PyTorch version beside it
-(``_stream_wvt_reference`` / ``_stream_curl_reference``), which evaluates
-the same algorithm with the same block-level loop.  Any other device
-raises.
+kernel of ``csrc/`` (one CTA per receiver block) and counts the launch in
+``stream_wvt.launches`` / ``stream_curl.launches``; a CPU tensor runs the
+plain PyTorch version beside it (``_stream_wvt_reference`` /
+``_stream_curl_reference``), which evaluates every listed pair with the
+same block-level loop.  Any other device raises.
+
+The ``stream_wvt`` kernel prunes member blocks itself, with the JAX
+package's chunk cross test (``build_chunk_tab``, ``stream_skip_bits``:
+their plain versions are here and are the test oracle of the kernel's
+test), and drops the periodic wrap from the pair loop on rows that need
+none (``prune_tables``).  Neither changes a bit of the kernel's outputs,
+so the plain version stays the reference of the kernel.
 """
 
 from __future__ import annotations
@@ -45,6 +51,15 @@ _KIND = {"wc6": 0, "m4": 1}
 # elements of one row chunk's (rows, 128, sources) pair arrays in the
 # plain versions, by device type
 _PAIR_BUDGET = {"cuda": 1 << 25, "cpu": 1 << 22}
+# 16-particle chunks per block in the member test
+N_CHUNKS = 8
+# absolute inflation of the member test's thresholds, in box units: two
+# quanta of the TPU's 2^22 position grid (a few float32 ulps of a
+# coordinate), so that no rounding of a pair distance in the kernel puts
+# a pair of a dropped member within range
+_INFL = 2.0 ** -21
+# the kernel's member lists hold list positions in 14 bits
+MAX_LIST_WIDTH = (1 << 14) // SUPER
 
 
 def _spec_win(desnngb):
@@ -116,11 +131,215 @@ def _launch(lib, args):
 
 
 # --------------------------------------------------------------------------
+# Member pruning: the chunk cross test, and the hoisted-wrap flag
+# --------------------------------------------------------------------------
+
+def _min_image(d, boxsize):
+    return d - boxsize * torch.round(d * (1.0 / boxsize))
+
+
+def _wrapped_bounds(p, boxsize):
+    """Min and max over the last axis of positions p, wrap-aware (as
+    ``sph.block_boxes``): each group is re-centred on its first element
+    with min-image deltas, so a group that straddles the periodic edge
+    gets its true extent."""
+    ref = p[..., :1]
+    d = _min_image(p - ref, boxsize)
+    return ref[..., 0] + d.amin(dim=-1), ref[..., 0] + d.amax(dim=-1)
+
+
+def build_chunk_tab(pos_t, hm_src_b, boxsize, n_chunks=N_CHUNKS):
+    """(nb, n_chunks * 8) float32 chunk geometry of the blocks ``pos_t``
+    (nb, 3, 128): per 16-particle chunk [cen xyz, ext xyz, the chunk's
+    largest ``hm_src_b`` (nb, 128), 0].  The JAX package's
+    ``build_chunk_tab``, made wrap-aware: a chunk's hull is its true
+    extent even where it straddles the periodic edge.  Pad lanes are
+    copies of a real particle, so hulls stay exact bounds."""
+    nb = pos_t.shape[0]
+    lo, hi = _wrapped_bounds(pos_t.reshape(nb, 3, n_chunks, -1), boxsize)
+    bh = hm_src_b.reshape(nb, n_chunks, -1).amax(dim=2)
+    tab = torch.cat([(0.5 * (lo + hi)).transpose(1, 2),
+                     (0.5 * (hi - lo)).transpose(1, 2), bh[..., None],
+                     torch.zeros_like(bh[..., None])], dim=-1)
+    return tab.reshape(nb, n_chunks * 8).to(torch.float32).contiguous()
+
+
+def member_keep(rtab, mtab, boxsize, do_disp):
+    """The chunk cross test of receiver blocks against member blocks.
+    ``rtab`` (C, 8, 8) receiver chunks [cen, ext, largest cap, largest
+    hm_i (box units)], ``mtab`` (C, E, 8, 8) member chunks [cen, ext,
+    largest hm, 0].  A member is kept for the density if the minimum-image
+    gap of some (receiver chunk, member chunk) pair is at most that
+    receiver chunk's cap, and for the displacement if it is at most
+    0.5 (hm_i + hm) boxsize; both thresholds are inflated by _INFL
+    boxsize.  Every operation rounds as in the kernel's test
+    (csrc/stream_wvt.cu ``hull_gap2``), so both keep the same members.
+    Returns (dens, disp), each (C, E) bool."""
+    ri = rtab[:, None, :, None, :]                       # (C,1,rc,1,8)
+    cj = mtab[:, :, None, :, :]                          # (C,E,1,mc,8)
+    infl = _INFL * boxsize
+    g2 = None
+    for d in range(3):
+        dd = _min_image(ri[..., d] - cj[..., d], boxsize)
+        gp = torch.clamp(dd.abs() - (ri[..., 3 + d] + cj[..., 3 + d]),
+                         min=0.0)
+        g2 = gp * gp if g2 is None else g2 + gp * gp
+    td = ri[..., 6] + infl
+    dens = (g2 <= td * td).flatten(2).any(dim=2)
+    if not do_disp:
+        return dens, torch.zeros_like(dens)
+    tx = 0.5 * (ri[..., 7] + cj[..., 6]) * boxsize + infl
+    return dens, (g2 <= tx * tx).flatten(2).any(dim=2)
+
+
+def _listed_members(cand, cnt, nb, sb_mode=True):
+    """(S, E) member block ids of the first min(cnt, M) list entries of
+    each row and their validity (listed, id >= 0, block < nb); E = M * 8
+    (superblock ids) or M (block ids, without ``sb_mode``)."""
+    S, M = cand.shape
+    slot = torch.arange(M, device=cand.device)
+    listed = torch.where(slot[None] < torch.clamp(cnt, max=M)[:, None],
+                         cand, torch.full_like(cand, -1))
+    return list_entries(listed, nb, sb_mode)
+
+
+def _keep_rows(rtab, ctab, cand, cnt, boxsize, do_disp, sb_mode=True):
+    """``member_keep`` over every row of the lists ``cand`` (S, M) of
+    superblock ids (block ids without ``sb_mode``) in row chunks: returns
+    (dens, disp, listed), each (S, E) bool as ``_listed_members``;
+    unlisted members are kept by neither test."""
+    nb = ctab.shape[0]
+    e, ok = _listed_members(cand, cnt, nb, sb_mode)
+    dens = torch.zeros_like(ok)
+    disp = torch.zeros_like(ok)
+    per_row = max(e.shape[1] * N_CHUNKS * N_CHUNKS, 1)
+    step = max(1, _PAIR_BUDGET[cand.device.type] // 4 // per_row)
+    mt = ctab.reshape(nb, N_CHUNKS, 8)
+    for s0 in range(0, cand.shape[0], step):
+        s1 = min(s0 + step, cand.shape[0])
+        d, x = member_keep(rtab[s0:s1], mt[e[s0:s1]], boxsize, do_disp)
+        dens[s0:s1] = d & ok[s0:s1]
+        disp[s0:s1] = x & ok[s0:s1]
+    return dens, disp, ok
+
+
+def pair_range(cap_rows, hm_rows, bhm_max, boxsize):
+    """(S,) the largest pair range of each row: its largest cap and, with
+    ``hm_rows`` (S, 128) and the sources' largest hm ``bhm_max`` (box
+    units), the widest displacement range 0.5 (hm_i + hm_j) boxsize."""
+    r_pair = cap_rows.amax(dim=1)
+    if hm_rows is None:
+        return r_pair
+    return torch.maximum(
+        r_pair, 0.5 * (hm_rows.amax(dim=1) + bhm_max) * boxsize)
+
+
+def hoist_safe(half_ext, r_pair, boxsize):
+    """(S,) int32: 1 where the TPU kernel's hoisted periodic wrap is valid
+    for a row, i.e. the receiver block's half-extent ``half_ext`` (S, 3)
+    plus its largest pair range ``r_pair`` (S,) stays below 0.49 boxsize
+    on every axis."""
+    return (half_ext + r_pair[:, None] < 0.49 * boxsize).all(
+        dim=1).to(torch.int32)
+
+
+def _recv_tab(ctab_rows, cap_rows, hm_rows):
+    """(S, 8, 8) receiver chunks: the chunk geometry ``ctab_rows`` (S, 64)
+    with the chunks' largest cap and hm_i (zeros without ``hm_rows``) in
+    columns 6 and 7."""
+    S = cap_rows.shape[0]
+    rt = ctab_rows.reshape(S, N_CHUNKS, 8).clone()
+    rt[:, :, 6] = cap_rows.reshape(S, N_CHUNKS, -1).amax(dim=2)
+    rt[:, :, 7] = (0.0 if hm_rows is None else
+                   hm_rows.reshape(S, N_CHUNKS, -1).amax(dim=2))
+    return rt
+
+
+def stream_skip_bits(bb_lo, bb_hi, bhm, idc, block_rows, cap_rows, hm_rows,
+                     boxsize, chunk_tab):
+    """The JAX package's ``stream_skip_bits`` in superblock mode with the
+    chunk cross test, without count buckets, at margin 1.0: packed 2-bit
+    fields, 16 per int32 word, for the members of each row's superblocks
+    ``block_rows`` (S, M) (-1 empty): bit0 set where the density can skip
+    the member (no chunk pair within cap, or an invalid member), bit1 set
+    where the displacement needs it.  ``bb_lo``/``bb_hi`` (nb, 3) block
+    boxes, ``bhm`` (nb,) the blocks' largest source hm in box units (None:
+    no displacement), ``idc`` (S,) receiver block ids, ``cap_rows`` and
+    ``hm_rows`` (S, 128), ``chunk_tab`` from ``build_chunk_tab``.  Returns
+    (bits (S, M8 / 16) int32 with M8 = 8 M rounded up to 16, safe (S,)
+    int32 from ``hoist_safe``)."""
+    S, M = block_rows.shape
+    if M % 2:
+        block_rows = torch.cat([block_rows, torch.full(
+            (S, 1), -1, dtype=block_rows.dtype, device=block_rows.device)],
+            dim=1)
+    idl = torch.clamp(idc.long(), max=bb_lo.shape[0] - 1)
+    rtab = _recv_tab(chunk_tab[idl], cap_rows,
+                     hm_rows if bhm is not None else None)
+    cnt = torch.full((S,), block_rows.shape[1], dtype=torch.int32,
+                     device=block_rows.device)
+    dens, disp, _ = _keep_rows(rtab, chunk_tab, block_rows, cnt, boxsize,
+                               bhm is not None)
+    b2 = ((~dens).long() | (disp.long() << 1)).reshape(S, -1, 16)
+    shifts = torch.arange(16, device=b2.device) * 2
+    words = (b2 << shifts).sum(dim=2)
+    bits = (((words + (1 << 31)) % (1 << 32)) - (1 << 31)).to(torch.int32)
+    r_pair = pair_range(cap_rows, None if bhm is None else hm_rows,
+                        None if bhm is None else bhm.max(), boxsize)
+    return bits, hoist_safe(0.5 * (bb_hi[idl] - bb_lo[idl]), r_pair, boxsize)
+
+
+def interior_rows(xi, r_pair, boxsize):
+    """(S,) bool: rows whose reach, the receivers' extent (as stored, not
+    wrapped) widened by the pair range ``r_pair`` (S,) and the test's
+    inflation, lies inside (0, boxsize) on every axis.  Every source
+    within range of such a row is stored at its minimum-image position,
+    less than half a box away (the reach spans less than the box), so no
+    separation of a pair in range needs the periodic wrap, and a source
+    out of range can only come out farther without it."""
+    reach = r_pair * (1.0 + 2.0 ** -20) + _INFL * boxsize
+    lo = xi.amin(dim=2) - reach[:, None]
+    hi = xi.amax(dim=2) + reach[:, None]
+    return ((lo > 0.0) & (hi < boxsize)).all(dim=1)
+
+
+def prune_tables(src_blocks, xi, cap, hm_i, boxsize, *, do_disp=True,
+                 hoist=True):
+    """What ``stream_wvt``'s kernel reads for its member test and its
+    hoisted wrap: the sources' chunk table (nb, 64) (``build_chunk_tab``
+    of the coordinates and the hm row), the receivers' chunks (S, 8, 8)
+    (``_recv_tab``; hm_i only with ``do_disp``), and per row (S,) int32
+    the flag of the rows that skip the periodic wrap, ``interior_rows``
+    (0 on every row without ``hoist``)."""
+    ctab = build_chunk_tab(src_blocks[:, :3], src_blocks[:, 3], boxsize)
+    hm_rows = hm_i if do_disp else None
+    bhm_max = src_blocks[:, 3].amax() if do_disp else None
+    rtab = _recv_tab(build_chunk_tab(xi, cap, boxsize), cap, hm_rows)
+    flag = interior_rows(xi, pair_range(cap, hm_rows, bhm_max, boxsize),
+                         boxsize).to(torch.int32)
+    if not hoist:
+        flag = torch.zeros_like(flag)
+    return ctab, rtab.contiguous(), flag.contiguous()
+
+
+def member_counts(src_blocks, cand, cnt, xi, cap, hm_i, boxsize, *,
+                  do_disp=True):
+    """Per row (S, 3) int32: the members that the kernel's test keeps for
+    either consumer and for the density, and the listed members."""
+    ctab, rtab, _ = prune_tables(src_blocks, xi, cap, hm_i, boxsize,
+                                 do_disp=do_disp)
+    dens, disp, ok = _keep_rows(rtab, ctab, cand, cnt, boxsize, do_disp)
+    return torch.stack([(dens | disp).sum(dim=1), dens.sum(dim=1),
+                        ok.sum(dim=1)], dim=1).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
 # Fused density solve + WVT displacement
 # --------------------------------------------------------------------------
 
 def stream_wvt(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart, boxsize, *,
-               kernel="wc6", desnngb=295, n_sweeps=N_SWEEPS, do_disp=True):
+               kernel="wc6", desnngb=295, n_sweeps=N_SWEEPS, do_disp=True,
+               stats=None, prune=True, hoist=True):
     """Per receiver block: the adaptive-h density solve and, with
     ``do_disp``, the WVT displacement.
 
@@ -130,22 +349,43 @@ def stream_wvt(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart, boxsize, *,
     all 128 lanes of the block are done or ``n_sweeps`` measurements were
     taken.  Returns (rho, h, var_hsml_fac, wk_ngb, done, delta): five
     (S, 128) tensors (done bool) and delta (S, 128, 3), or None without
-    ``do_disp``."""
+    ``do_disp``.
+
+    ``stats``, an optional (S, 4) int32 output, receives per row the
+    sweeps taken, the members kept for either consumer, the members kept
+    for the density, and the listed members (``member_counts``; the
+    plain version evaluates every listed pair all the same).  The kernel
+    streams only the kept members and skips the periodic wrap on the rows
+    that ``prune_tables`` flags; ``prune=False`` / ``hoist=False`` turn
+    that off, for the checks that neither changes a bit."""
     dev, nb, S, M = _check_common(src_blocks, 4, cand, cnt, xi,
                                   dict(h0=h0, cap=cap, hm_i=hm_i))
     if kernel not in _KIND:
         raise ValueError(f"unknown kernel {kernel!r}")
+    if stats is not None:
+        _check("stats", stats, torch.int32, (S, 4), dev)
     if dev.type == "cpu":
         return _stream_wvt_reference(
             src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart, boxsize,
             kernel=kernel, desnngb=desnngb, n_sweeps=n_sweeps,
-            do_disp=do_disp)
+            do_disp=do_disp, stats=stats)
+    if M > MAX_LIST_WIDTH:
+        raise ValueError(f"list width {M} exceeds {MAX_LIST_WIDTH}")
+    ctab, rtab, flag = prune_tables(src_blocks, xi, cap, hm_i, boxsize,
+                                    do_disp=do_disp, hoist=hoist)
+    # rows with the longest lists first, so that they do not set the end
+    # of the grid
+    order = torch.argsort(torch.clamp(cnt, max=M), descending=True,
+                          stable=True).to(torch.int32)
+    # the kernel stages sources as (x, y, z, hm) 16-byte records
+    src = _pad_superblocks(src_blocks).transpose(1, 2).contiguous()
     out = torch.empty((S, BLOCK, 8), dtype=torch.float32, device=dev)
     _launch("stream_wvt", [
-        _pad_superblocks(src_blocks), cand, cnt, xi, h0, cap, hm_i, out, S,
-        M, nb, _KIND[kernel], bool(do_disp), n_sweeps, float(mpart),
-        float(boxsize), float(desnngb), float(_spec_win(desnngb)),
-        float(_rho_corr(desnngb, mpart, kernel))])
+        src, cand, cnt, xi, h0, cap, hm_i, ctab, rtab, flag, order, out,
+        stats, S, M, nb, _KIND[kernel], bool(do_disp), n_sweeps,
+        bool(prune), float(mpart), float(boxsize),
+        float(1.0 / boxsize), float(_INFL * boxsize), float(desnngb),
+        float(_spec_win(desnngb)), float(_rho_corr(desnngb, mpart, kernel))])
     stream_wvt.launches += 1
     rho, h, vf, wk, done = (out[:, :, k] for k in range(5))
     return rho, h, vf, wk, done > 0.5, (out[:, :, 5:8] if do_disp else None)
@@ -290,16 +530,19 @@ def _update(kernel, state, acc, cap, mpart, desnngb, spec_win):
 
 
 def _stream_wvt_reference(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
-                          boxsize, *, kernel, desnngb, n_sweeps, do_disp):
+                          boxsize, *, kernel, desnngb, n_sweeps, do_disp,
+                          stats=None):
     """Plain PyTorch version of ``stream_wvt``: chunks of receiver rows,
     the candidate member blocks gathered, the same per-block sweep loop
-    (a row stops when all its lanes are done)."""
+    (a row stops when all its lanes are done).  ``stats`` as for
+    ``stream_wvt``: the sweeps come from this loop."""
     S, M = cand.shape
     dev = src_blocks.device
     f32 = torch.float32
     cnt = torch.clamp(cnt, max=M)
     spec_win = _spec_win(desnngb)
     out = torch.zeros((S, BLOCK, 8), dtype=f32, device=dev)
+    sweeps = torch.zeros((S,), dtype=torch.int32, device=dev)
     for s0, s1 in _row_chunks(cnt, _PAIR_BUDGET[dev.type]):
         rows = torch.arange(s0, s1, device=dev)
         g = _member_gather(src_blocks, cand, cnt, rows, True)  # (C, 4, L)
@@ -333,7 +576,9 @@ def _stream_wvt_reference(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
                         c_cap, mpart, desnngb, spec_win)
         k = 1
         active = ~(state[5] > 0.5).all(dim=1)                 # per row
+        sweeps[s0:s1] = 1
         while k < n_sweeps and bool(active.any()):
+            sweeps[s0:s1] += active.to(torch.int32)
             acc_n = _dens_sums(kernel, r2, vj, state[1])
             new = _update(kernel, state, acc_n, c_cap, mpart, desnngb,
                           spec_win)
@@ -365,6 +610,10 @@ def _stream_wvt_reference(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
             dnorm = hm_i[s0:s1] * (1.0 if kernel == "m4" else WC6_NORM)
             for d in range(3):
                 o[:, :, 5 + d] = dnorm * acc_d[d]
+    if stats is not None:
+        stats[:, 0] = sweeps
+        stats[:, 1:] = member_counts(src_blocks, cand, cnt, xi, cap, hm_i,
+                                     boxsize, do_disp=do_disp)
     rho, h, vf, wk, done = (out[:, :, k] for k in range(5))
     return rho, h, vf, wk, done > 0.5, (out[:, :, 5:8] if do_disp else None)
 
