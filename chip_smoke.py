@@ -2,6 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+With ``--parent-csrc DIR`` (the csrc directory of another tree whose
+solve_density and wvt_displacement kernels have the one-CTA-a-row C
+interface) step 5 also builds those two kernels and times them on the same
+recorded inputs, in turns with this tree's (parent, change, change,
+parent).
 
 1. Checks that CUDA is available and prints the card's name and power
    limit.
@@ -26,20 +31,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    each run: once on the stream engine (the default) and once with
    engine=classed.  After each run it checks that the engine's kernels
    were launched (stream: stream_wvt and stream_curl; classed:
-   solve_density, wvt_displacement, fused_wvt and block-list
+   solve_density and wvt_displacement over block lists and over the
+   far-tail rows' superblock lists, fused_wvt and block-list
    stream_curl, and no stream_wvt), that the neighbour contract fraction
    is >= 0.999 and err_mean fell, and reads the snapshot back (1e6
    particles, finite, rho/u/bfld nonzero on the gas).  Prints the
    per-stage wall times and the WVT particle updates per second of each
    run.
 5. Holds each kernel against its plain version again on the inputs of
-   its first main-path call (for stream_wvt with the checks of step 3),
+   its first main-path call (solve_density and wvt_displacement: of the
+   first block-list call, the 512-wide count class, and of the first
+   far-tail call, as records of their own; with the checks of step 3),
    times both there with CUDA events, and computes each kernel's bound:
    the larger of its fp32 operations over the card's fp32 peak and its
    bytes (inputs read once, outputs written once) over the HBM peak,
    with the operations counted from this run's data (the members the
-   chunk test keeps for the stream kernels, the listed blocks for the
-   count-class kernels, the sweeps the kernel or the plain version took,
+   chunk test keeps for the stream kernels and for wvt_displacement, the
+   blocks solve_density's sweeps walked (of the blocks its test keeps,
+   those within each sweep's own ranges), the blocks within fused_wvt's
+   distance bounds, the sweeps the kernel or the plain version took,
    and the periodic wrap only on the rows whose reach leaves the box).
 
 Prints the kernel record and the card line before the last line, and as
@@ -67,7 +77,9 @@ KERNELS = (
     ("stream_curl", "stream_curl", f"{PALLAS}:1953"),
     ("stream_curl_blocks", "stream_curl", f"{PALLAS}:1953"),
     ("solve_density", "solve_density", f"{PALLAS}:104"),
+    ("solve_density_sb", "solve_density", f"{PALLAS}:104"),
     ("wvt_displacement", "wvt_displacement", f"{PALLAS}:637"),
+    ("wvt_displacement_sb", "wvt_displacement", f"{PALLAS}:637"),
     ("fused_wvt", "fused_wvt", f"{PALLAS}:230"),
 )
 LIBS = ("stream_wvt", "stream_curl", "solve_density", "wvt_displacement",
@@ -87,6 +99,9 @@ OPS_DIST, OPS_WRAP = 8, 12
 OPS_DENS = {"wc6": 1, "m4": 2}  # r2 / h^2; M4: sqrt and r / h
 OPS_UNION = 7                   # rsqrt, max, r, r / h, hbar (2), hbar^2
 OPS_DISP = 6                    # to box units (3), hbar (2), hbar^2
+# the kernel records of the classed main path
+CLASSED_NAMES = ("solve_density", "solve_density_sb", "wvt_displacement",
+                 "wvt_displacement_sb", "fused_wvt", "stream_curl_blocks")
 
 
 def fail(msg):
@@ -304,46 +319,189 @@ def check_curl(torch, sp, args, kw, valid):
                     *args, **kw), 1), bound_ms=b_ms, bound_by=b_by)
 
 
-def check_solve(torch, sp, cp, args, kw, valid):
+class ParentKernels:
+    """solve_density and wvt_displacement of another tree's csrc
+    directory (the C interface of the one-CTA-of-128-threads kernels),
+    built beside this tree's to time both on the same inputs."""
+
+    def __init__(self, sp, csrc):
+        from toycluster_tpu_torch.ops import cuda_build
+        self.sp, names = sp, ("solve_density", "wvt_displacement")
+        cuda_build.build(names, Path(csrc))
+        self.fn = {n: getattr(cuda_build.load(n, Path(csrc)), f"{n}_launch")
+                   for n in names}
+
+    def solve_density(self, torch, args, kw, n_sweeps):
+        pos, valid_t, cand, xi, h0, cap, mpart, box = args
+        out = torch.empty((cand.shape[0], 128, 5), dtype=torch.float32,
+                          device=cand.device)
+        self.sp._call(self.fn["solve_density"], "parent solve_density", [
+            pos, valid_t, cand, xi, h0, cap, out, cand.shape[0],
+            cand.shape[1], pos.shape[0], self.sp._KIND[kw["kernel"]],
+            bool(kw.get("sb_mode")), n_sweeps, float(mpart), float(box),
+            float(kw["desnngb"]), float(self.sp._rho_corr(
+                kw["desnngb"], mpart, kw["kernel"]))])
+        return out
+
+    def wvt_displacement(self, torch, args, kw):
+        pos, valid_t, h_blocks, cand, xi, h_i, step, box = args
+        out = torch.empty((cand.shape[0], 128, 3), dtype=torch.float32,
+                          device=cand.device)
+        self.sp._call(self.fn["wvt_displacement"], "parent wvt_displacement",
+                      [pos, valid_t, h_blocks, cand, xi, h_i, out,
+                       cand.shape[0], cand.shape[1], pos.shape[0],
+                       self.sp._KIND[kw["kernel"]], bool(kw.get("sb_mode")),
+                       float(step), float(box)])
+        return out
+
+
+def ab_ms(torch, parent_fn, fn, reps):
+    """(parent_ms, ms), each the mean of two timings taken in turns:
+    parent, change, change, parent."""
+    a0 = event_ms(torch, parent_fn, reps)
+    b0 = event_ms(torch, fn, reps)
+    b1 = event_ms(torch, fn, reps)
+    a1 = event_ms(torch, parent_fn, reps)
+    return 0.5 * (a0 + a1), 0.5 * (b0 + b1)
+
+
+def list_walk_checks(torch, name, run, same, st, keep, ok):
+    """What solve_density and wvt_displacement share: ``run(**options)``
+    launches the kernel; pruned against unpruned and unwrapped against
+    wrapped runs must agree to the bit, a second run must repeat the bits,
+    and the blocks the kernel kept (``st``, its stats) must be the plain
+    oracle's (``keep``, ``ok``).  Returns the kept blocks per row."""
+    got = run()
+    for off in (dict(prune=False, hoist=False), dict()):
+        if not same(got, run(**off)):
+            fail(f"{name}: pruning, the dropped wrap or a second run "
+                 f"changed the result")
+    torch.cuda.synchronize()
+    kept, listed = keep.sum(dim=1), ok.sum(dim=1)
+    if not (torch.equal(st[:, 1].long(), kept)
+            and torch.equal(st[:, 2].long(), listed)):
+        fail(f"{name}: the kernel kept {int(st[:, 1].sum())} of "
+             f"{int(st[:, 2].sum())} blocks, the plain test "
+             f"{int(kept.sum())} of {int(listed.sum())}")
+    say(f"  {name}: blocks per row (median, p99, max) listed "
+        f"{quantiles(torch, listed)}, kept {quantiles(torch, kept)}; "
+        f"kept/listed {int(kept.sum()) / max(int(listed.sum()), 1):.4f}; "
+        f"pruned and unpruned bit-identical")
+    return kept
+
+
+def check_solve(torch, sp, cp, args, kw, valid, parent=None):
+    """solve_density against its plain version, with the checks of
+    ``list_walk_checks``; its bound counts the pairs of the blocks its
+    sweeps walked (of the kept blocks, those within each sweep's own
+    ranges: the kernel's count, at most kept x sweeps)."""
     kw = dict(kw)
     n_sweeps = kw.pop("n_sweeps", cp.SOLVE_SWEEPS)
-    got = cp.solve_density(*args, n_sweeps=n_sweeps, **kw)
-    torch.cuda.synchronize()
-    pos, _, cand = args[:3]
-    sweeps = torch.zeros(cand.shape[0], dtype=torch.int32,
-                         device=cand.device)
-    ref = cp._solve_density_reference(*args, n_sweeps=n_sweeps, **kw,
-                                      sweeps=sweeps)
-    err = compare_wvt(torch, got, unpack(ref, False), valid, kw["desnngb"],
-                      False, "solve_density")
-    xi, cap, box = args[3], args[5], args[7]
-    blocks = listed_blocks(torch, sp, cand, None, pos.shape[0],
-                           kw.get("sb_mode", False)).sum(dim=1)
-    ops = PAIRS * float((blocks * sweeps * (dist_ops(
+    plain_kw = {k: kw[k] for k in ("kernel", "desnngb", "sb_mode")
+                if k in kw}
+    pos, valid_t, cand, xi, _, cap, _, box = args
+    S = cand.shape[0]
+    sb_mode = kw.get("sb_mode", False)
+    cluster = cp._cluster_size(S, cand.shape[1] * (8 if sb_mode else 1),
+                               None)
+    st = torch.zeros((S, 4), dtype=torch.int32, device=cand.device)
+
+    def run(**options):
+        return cp.solve_density(*args, n_sweeps=n_sweeps, **kw, **options)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    got = run(stats=st)
+    keep, ok = cp.density_keep(pos, valid_t, cand, xi, cap, box,
+                               sb_mode=sb_mode)
+    kept = list_walk_checks(torch, "solve_density", run, same, st, keep, ok)
+    sweeps = torch.zeros(S, dtype=torch.int32, device=cand.device)
+    ref = unpack(cp._solve_density_reference(
+        *args, n_sweeps=n_sweeps, **plain_kw, sweeps=sweeps), False)
+    err = compare_wvt(torch, got, ref, valid, kw["desnngb"], False,
+                      "solve_density")
+    res = dict(err=err, cluster=cluster,
+               kept_over_listed=int(kept.sum()) / max(int(ok.sum()), 1),
+               walked_over_listed=int(st[:, 3].sum()) / max(
+                   int((ok.sum(dim=1) * st[:, 0]).sum()), 1))
+    if cluster > 1:
+        compare_wvt(torch, run(cluster=1), ref, valid, kw["desnngb"], False,
+                    "solve_density cluster=1")
+        res["ms_cluster1"] = event_ms(torch, lambda: run(cluster=1), 2)
+    walked, most = st[:, 3].long(), kept * st[:, 0]
+    if bool((walked > most).any()) or int(walked.sum()) <= 0:
+        fail(f"solve_density: {int(walked.sum())} blocks walked, "
+             f"{int(most.sum())} kept x sweeps")
+    say(f"  solve_density: sweeps per row (median, p99, max) kernel "
+        f"{quantiles(torch, st[:, 0])}, plain {quantiles(torch, sweeps)}; "
+        f"blocks walked over all sweeps {quantiles(torch, walked)}, "
+        f"walked / (kept x sweeps) {int(walked.sum()) / int(most.sum()):.4f}"
+        f"; {cluster} CTAs a row")
+    ops = PAIRS * float((walked * (dist_ops(
         sp, xi, cap.amax(dim=1), box) + OPS_DENS[kw["kernel"]])).sum())
-    b_ms, b_by = bound(ops, nbytes(*args) + cand.shape[0] * 128 * 5 * 4)
-    return dict(err=err, ms=event_ms(torch, lambda: cp.solve_density(
-        *args, n_sweeps=n_sweeps, **kw), 5), plain_ms=event_ms(
-        torch, lambda: cp._solve_density_reference(
-            *args, n_sweeps=n_sweeps, **kw), 1), bound_ms=b_ms, bound_by=b_by)
+    res["bound_ms"], res["bound_by"] = bound(
+        ops, nbytes(*args) + S * 128 * 5 * 4)
+    if parent is not None:
+        compare_wvt(torch, unpack(parent.solve_density(
+            torch, args, kw, n_sweeps), False), ref, valid, kw["desnngb"],
+            False, "parent solve_density")
+        res["parent_ms"], res["ms"] = ab_ms(
+            torch, lambda: parent.solve_density(torch, args, kw, n_sweeps),
+            run, 3)
+    else:
+        res["ms"] = event_ms(torch, run, 5)
+    res["ms_unpruned"] = event_ms(torch, lambda: run(prune=False,
+                                                     hoist=False), 2)
+    res["plain_ms"] = event_ms(torch, lambda: cp._solve_density_reference(
+        *args, n_sweeps=n_sweeps, **plain_kw), 1)
+    return res
 
 
-def check_disp(torch, sp, cp, args, kw, valid):
-    got = cp.wvt_displacement(*args, **kw)
-    torch.cuda.synchronize()
-    ref = cp._wvt_displacement_reference(*args, **kw)
-    pos, h_blocks, cand, xi, h_i, box = (args[k] for k in (0, 2, 3, 4, 5, 7))
-    blocks = listed_blocks(torch, sp, cand, None, pos.shape[0],
-                           kw.get("sb_mode", False)).sum(dim=1)
-    r_pair = 0.5 * (h_i.amax(dim=1) + h_blocks.max()) * box
-    ops = PAIRS * float((blocks * (dist_ops(sp, xi, r_pair, box)
-                                   + OPS_DISP)).sum())
-    b_ms, b_by = bound(ops, nbytes(*args) + cand.shape[0] * 128 * 3 * 4)
-    return dict(
-        err=compare_disp(torch, got, ref, valid, "wvt_displacement"),
-        ms=event_ms(torch, lambda: cp.wvt_displacement(*args, **kw), 5),
-        plain_ms=event_ms(torch, lambda: cp._wvt_displacement_reference(
-            *args, **kw), 1), bound_ms=b_ms, bound_by=b_by)
+def check_disp(torch, sp, cp, args, kw, valid, parent=None):
+    """wvt_displacement against its plain version, as ``check_solve``."""
+    plain_kw = {k: kw[k] for k in ("kernel", "sb_mode") if k in kw}
+    pos, valid_t, h_blocks, cand, xi, h_i, _, box = args
+    S = cand.shape[0]
+    sb_mode = kw.get("sb_mode", False)
+    cluster = cp._cluster_size(S, cand.shape[1] * (8 if sb_mode else 1),
+                               None)
+    st = torch.zeros((S, 4), dtype=torch.int32, device=cand.device)
+
+    def run(**options):
+        return cp.wvt_displacement(*args, **kw, **options)
+
+    got = run(stats=st)
+    keep, ok = cp.displacement_keep(pos, valid_t, h_blocks, cand, xi, h_i,
+                                    box, sb_mode=sb_mode)
+    kept = list_walk_checks(torch, "wvt_displacement", run, torch.equal, st,
+                            keep, ok)
+    ref = cp._wvt_displacement_reference(*args, **plain_kw)
+    res = dict(err=compare_disp(torch, got, ref, valid, "wvt_displacement"),
+               cluster=cluster,
+               kept_over_listed=int(kept.sum()) / max(int(ok.sum()), 1))
+    if cluster > 1:
+        compare_disp(torch, run(cluster=1), ref, valid,
+                     "wvt_displacement cluster=1")
+        res["ms_cluster1"] = event_ms(torch, lambda: run(cluster=1), 2)
+    h_src = torch.where(valid_t > 0.5, h_blocks, torch.zeros_like(h_blocks))
+    r_pair = 0.5 * (h_i.amax(dim=1) + h_src.max()) * box
+    ops = PAIRS * float((kept * (dist_ops(sp, xi, r_pair, box)
+                                 + OPS_DISP)).sum())
+    res["bound_ms"], res["bound_by"] = bound(
+        ops, nbytes(*args) + S * 128 * 3 * 4)
+    if parent is not None:
+        compare_disp(torch, parent.wvt_displacement(torch, args, kw), ref,
+                     valid, "parent wvt_displacement")
+        res["parent_ms"], res["ms"] = ab_ms(
+            torch, lambda: parent.wvt_displacement(torch, args, kw), run, 3)
+    else:
+        res["ms"] = event_ms(torch, run, 5)
+    res["ms_unpruned"] = event_ms(torch, lambda: run(prune=False,
+                                                     hoist=False), 2)
+    res["plain_ms"] = event_ms(
+        torch, lambda: cp._wvt_displacement_reference(*args, **plain_kw), 1)
+    return res
 
 
 def check_fused(torch, sp, cp, args, kw, valid):
@@ -476,17 +634,21 @@ def run_main_path(torch, sp, cp, tmp, engine):
     def curl_name(kw):
         return "stream_curl" if kw.get("sb_mode") else "stream_curl_blocks"
 
+    def solve_name(kw):
+        return "solve_density_sb" if kw.get("sb_mode") else "solve_density"
+
+    def disp_name(kw):
+        return ("wvt_displacement_sb" if kw.get("sb_mode")
+                else "wvt_displacement")
+
     patches = [
         (wvt, "stream_wvt", recorder(
             sp.stream_wvt, lambda kw: "stream_wvt"
             if kw.get("do_disp", True) else None)),
         (bfield, "stream_curl", recorder(sp.stream_curl, curl_name)),
-        (wvt, "solve_density", recorder(cp.solve_density,
-                                        lambda kw: "solve_density")),
-        (sph, "solve_density", recorder(cp.solve_density,
-                                        lambda kw: "solve_density")),
-        (wvt, "wvt_displacement", recorder(cp.wvt_displacement,
-                                           lambda kw: "wvt_displacement")),
+        (wvt, "solve_density", recorder(cp.solve_density, solve_name)),
+        (sph, "solve_density", recorder(cp.solve_density, solve_name)),
+        (wvt, "wvt_displacement", recorder(cp.wvt_displacement, disp_name)),
         (wvt, "fused_wvt", recorder(cp.fused_wvt, lambda kw: "fused_wvt")),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
@@ -508,12 +670,19 @@ def run_main_path(torch, sp, cp, tmp, engine):
             setattr(mod, attr, fn)
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    # the count-class kernels' launches per list mode
+    for k in (cp.solve_density, cp.wvt_displacement):
+        name = k.__name__
+        if by_name[name] + by_name[name + "_sb"] != k.launches:
+            fail(f"{name}: {k.launches} launches, {by_name[name]} + "
+                 f"{by_name[name + '_sb']} recorded")
+        launches[name] = by_name[name]
+        launches[name + "_sb"] = by_name[name + "_sb"]
     launches["stream_curl_blocks"] = by_name["stream_curl_blocks"]
     if rc != 0:
         fail(f"cli.main returned {rc} (engine={engine})")
     need = (("stream_wvt", "stream_curl") if engine == "stream" else
-            ("solve_density", "wvt_displacement", "fused_wvt",
-             "stream_curl_blocks"))
+            CLASSED_NAMES)
     for name in need:
         if launches[name] <= 0:
             fail(f"the {engine} main path launched {name} no time")
@@ -552,10 +721,11 @@ def run_main_path(torch, sp, cp, tmp, engine):
     return launches, recorded
 
 
-def time_on_main_path_inputs(torch, sp, cp, recorded):
+def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
     """Kernel vs plain on the inputs of each kernel's first main-path
     call: agreement, CUDA-event times and bounds.  These launches come
-    after the counted runs."""
+    after the counted runs.  With ``parent`` (ParentKernels) the four
+    solve_density and wvt_displacement records also time its kernels."""
     res = {}
     args, kw = recorded["stream_wvt"]
     res["stream_wvt"] = check_wvt(
@@ -569,27 +739,46 @@ def time_on_main_path_inputs(torch, sp, cp, recorded):
             ("stream_curl_blocks", check_curl, 1, lambda a: a[5] != 0),
             ("solve_density", check_solve, 2,
              lambda a: torch.ones_like(a[4], dtype=torch.bool)),
+            ("solve_density_sb", check_solve, 2,
+             lambda a: torch.ones_like(a[4], dtype=torch.bool)),
             ("wvt_displacement", check_disp, 3,
+             lambda a: torch.ones_like(a[5], dtype=torch.bool)),
+            ("wvt_displacement_sb", check_disp, 3,
              lambda a: torch.ones_like(a[5], dtype=torch.bool)),
             ("fused_wvt", check_fused, 2,
              lambda a: torch.ones_like(a[5], dtype=torch.bool))):
         args, kw = recorded[name]
         if check is check_curl:
             res[name] = check(torch, sp, args, kw, valid_of(args))
+        elif check in (check_solve, check_disp):
+            res[name] = check(torch, sp, cp, args, kw, valid_of(args),
+                              parent)
         elif check is not None:
             res[name] = check(torch, sp, cp, args, kw, valid_of(args))
         cand = args[cand_arg]
         r = res[name]
+        extra = "".join(f" {k}={r[k]:.6g}" for k in (
+            "parent_ms", "ms_unpruned", "ms_cluster1", "cluster",
+            "kept_over_listed", "walked_over_listed") if k in r)
         say(f"main-path {name}: rows={cand.shape[0]} width={cand.shape[1]} "
             f"sb_mode={kw.get('sb_mode', name == 'stream_wvt')} "
             f"max_err={r['err']:.6g} kernel_ms={r['ms']:.6g} "
             f"plain_ms={r['plain_ms']:.6g} bound_ms={r['bound_ms']:.6g} "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}){extra}")
+        if r["bound_ms"] > r["ms"]:
+            fail(f"{name}: bound {r['bound_ms']} ms above the kernel's "
+                 f"{r['ms']} ms")
     return res
 
 
 def main():
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent-csrc", default=None, help="csrc directory of "
+                    "another tree: time its solve_density and "
+                    "wvt_displacement kernels beside this tree's")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     if not (ROOT / PKG / "csrc").is_dir():
@@ -622,9 +811,7 @@ def main():
     launches, recorded = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for engine, names in (("stream", ("stream_wvt", "stream_curl")),
-                              ("classed", ("solve_density",
-                                           "wvt_displacement", "fused_wvt",
-                                           "stream_curl_blocks"))):
+                              ("classed", CLASSED_NAMES)):
             run_launches, run_recorded = run_main_path(torch, sp, cp, tmp,
                                                        engine)
             for name in names:
@@ -632,7 +819,13 @@ def main():
                 if name not in run_recorded:
                     fail(f"no {name} call was recorded")
                 recorded[name] = run_recorded[name]
-    res = time_on_main_path_inputs(torch, sp, cp, recorded)
+    parent = None
+    if opts.parent_csrc is not None:
+        t0 = time.perf_counter()
+        parent = ParentKernels(sp, opts.parent_csrc)
+        say(f"build of the parent's solve_density and wvt_displacement "
+            f"({opts.parent_csrc}): {time.perf_counter() - t0:.3f} s")
+    res = time_on_main_path_inputs(torch, sp, cp, recorded, parent)
     # no single PyTorch call computes a per-lane h solve or an SPH pair
     # sum over candidate lists: library_ms is null for every kernel
     record = {"kernels": [
@@ -643,9 +836,13 @@ def main():
          "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None}
         for name, lib, rep in KERNELS]}
-    # stream_wvt without hoisting, and without pruning and hoisting
-    for key in ("ms_unhoisted", "ms_unpruned"):
-        record["kernels"][0][key] = res["stream_wvt"][key]
+    # what a check measured besides: stream_wvt without hoisting, a kernel
+    # without pruning and hoisting, on one CTA a row, the parent's kernel
+    for k in record["kernels"]:
+        for key in ("ms_unhoisted", "ms_unpruned", "ms_cluster1", "cluster",
+                    "kept_over_listed", "walked_over_listed", "parent_ms"):
+            if key in res[k["name"]]:
+                k[key] = res[k["name"]][key]
     for k in record["kernels"]:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

@@ -177,24 +177,34 @@ def _disp_close(got, ref, valid):
                                atol=1e-6 * float(a.abs().max()))
 
 
+def _class_args(c):
+    """(solve_density args, wvt_displacement args) of cusp.class_inputs."""
+    return ((c["pos_t"], c["valid_t"], c["cand"], c["pos_t"], c["h0"],
+             c["cap"], 1.0, cusp.BOX),
+            (c["pos_t"], c["valid_t"], c["h_b3"], c["cand"], c["pos_t"],
+             c["hm"], 1.0, cusp.BOX))
+
+
+def _solve_ref(args, kw):
+    ref = cp._solve_density_reference(*args, n_sweeps=cp.SOLVE_SWEEPS, **kw)
+    return (ref[..., 0], ref[..., 1], None, ref[..., 3], ref[..., 4] > 0.5)
+
+
 @pytest.mark.parametrize("kernel", ["wc6", "m4"])
 @pytest.mark.parametrize("sb_mode", [False, True])
-def test_class_kernels_match_plain(dev, kernel, sb_mode):
+@pytest.mark.parametrize("centre", [cusp.BOX / 2, 0.0])
+def test_class_kernels_match_plain(dev, kernel, sb_mode, centre):
     """solve_density, wvt_displacement and fused_wvt (with and without
-    the bounds, bit-identical) against their plain versions."""
-    c = cusp.class_inputs(kernel, N, sb_mode, device=dev)
+    the bounds, bit-identical) against their plain versions, the cusp in
+    the box centre and across the periodic edge."""
+    c = cusp.class_inputs(kernel, N, sb_mode, device=dev, centre=centre)
     des, v = c["desnngb"], c["valid"]
     kw = dict(kernel=kernel, desnngb=des, sb_mode=sb_mode)
     before = (cp.solve_density.launches, cp.wvt_displacement.launches,
               cp.fused_wvt.launches)
-    args = (c["pos_t"], c["valid_t"], c["cand"], c["pos_t"], c["h0"],
-            c["cap"], 1.0, cusp.BOX)
-    got = cp.solve_density(*args, **kw)
-    ref = cp._solve_density_reference(*args, n_sweeps=cp.SOLVE_SWEEPS, **kw)
-    _density_close(got, (ref[..., 0], ref[..., 1], None, ref[..., 3],
-                         ref[..., 4] > 0.5), v, des)
-    dargs = (c["pos_t"], c["valid_t"], c["h_b3"], c["cand"], c["pos_t"],
-             c["hm"], 1.0, cusp.BOX)
+    args, dargs = _class_args(c)
+    _density_close(cp.solve_density(*args, **kw), _solve_ref(args, kw), v,
+                   des)
     _disp_close(cp.wvt_displacement(*dargs, kernel=kernel, sb_mode=sb_mode),
                 cp._wvt_displacement_reference(*dargs, kernel=kernel,
                                                sb_mode=sb_mode), v)
@@ -213,6 +223,165 @@ def test_class_kernels_match_plain(dev, kernel, sb_mode):
     assert (cp.solve_density.launches, cp.wvt_displacement.launches,
             cp.fused_wvt.launches) == tuple(n + k for n, k in
                                             zip(before, (1, 1, 2)))
+
+
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+@pytest.mark.parametrize("sb_mode", [False, True])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_class_pruning_is_bit_identical(dev, kernel, sb_mode, cluster):
+    """Pruned and unpruned, wrapped and unwrapped runs of solve_density
+    and wvt_displacement agree to the bit at a given cluster size (the
+    cusp's outskirts lie across the edge: some rows wrap, most do not);
+    the blocks the kernels keep are the plain oracles', row by row."""
+    c = cusp.class_inputs(kernel, N, sb_mode, device=dev, centre=100.0)
+    S = c["cand"].shape[0]
+    args, dargs = _class_args(c)
+    kw = dict(kernel=kernel, sb_mode=sb_mode, cluster=cluster)
+    st, su, sd = (torch.zeros((S, 4), dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    flag = sp.interior_rows(c["pos_t"], c["cap"].amax(dim=1), cusp.BOX)
+    assert 0 < int(flag.sum()) < S
+    got = cp.solve_density(*args, desnngb=c["desnngb"], **kw, stats=st)
+    for off in (dict(prune=False, stats=su), dict(hoist=False),
+                dict(prune=False, hoist=False)):
+        full = cp.solve_density(*args, desnngb=c["desnngb"], **kw, **off)
+        for a, b in zip(got, full):
+            assert torch.equal(a, b)
+    keep, ok = cp.density_keep(c["pos_t"], c["valid_t"], c["cand"],
+                               c["pos_t"], c["cap"], cusp.BOX,
+                               sb_mode=sb_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(st[:, 1].long(), keep.sum(dim=1))
+    assert torch.equal(st[:, 2].long(), ok.sum(dim=1))
+    assert torch.equal(su[:, 1], su[:, 2]) and torch.equal(su[:, 2], st[:, 2])
+    assert torch.equal(su[:, 0], st[:, 0])
+    assert bool((st[:, 0] >= 1).all())
+    assert bool((st[:, 0] <= cp.SOLVE_SWEEPS).all())
+    if sb_mode:
+        assert int(st[:, 1].sum()) < int(st[:, 2].sum())
+    # each sweep walks the kept blocks within its own ranges
+    assert torch.equal(su[:, 3], su[:, 0] * su[:, 1])
+    assert bool((st[:, 3] <= st[:, 0] * st[:, 1]).all())
+    assert 0 < int(st[:, 3].sum()) < int((st[:, 0] * st[:, 1]).sum())
+    got = cp.wvt_displacement(*dargs, **kw, stats=sd)
+    for off in (dict(prune=False), dict(hoist=False)):
+        assert torch.equal(got, cp.wvt_displacement(*dargs, **kw, **off))
+    keep, ok = cp.displacement_keep(
+        c["pos_t"], c["valid_t"], c["h_b3"], c["cand"], c["pos_t"], c["hm"],
+        cusp.BOX, sb_mode=sb_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(sd[:, 1].long(), keep.sum(dim=1))
+    assert torch.equal(sd[:, 2].long(), ok.sum(dim=1))
+    assert torch.equal(sd[:, 3], sd[:, 1]) and bool((sd[:, 0] == 1).all())
+    assert int(sd[:, 1].sum()) < int(sd[:, 2].sum())
+
+
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+@pytest.mark.parametrize("sb_mode", [False, True])
+def test_class_cluster_sizes_agree(dev, kernel, sb_mode):
+    """A row on one CTA and split over clusters of 2, 3 and 8 CTAs: every
+    size matches the plain version, and a second run repeats the bits."""
+    c = cusp.class_inputs(kernel, N, sb_mode, device=dev)
+    des, v = c["desnngb"], c["valid"]
+    args, dargs = _class_args(c)
+    kw = dict(kernel=kernel, sb_mode=sb_mode)
+    ref = _solve_ref(args, dict(kw, desnngb=des))
+    dref = cp._wvt_displacement_reference(*dargs, **kw)
+    one = cp.solve_density(*args, desnngb=des, **kw, cluster=1)
+    for cluster in (1, 2, 3, 8):
+        got = cp.solve_density(*args, desnngb=des, **kw, cluster=cluster)
+        again = cp.solve_density(*args, desnngb=des, **kw, cluster=cluster)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        _density_close(got, ref, v, des)
+        _density_close(got, one, v, des)
+        d = cp.wvt_displacement(*dargs, **kw, cluster=cluster)
+        assert torch.equal(d, cp.wvt_displacement(*dargs, **kw,
+                                                  cluster=cluster))
+        _disp_close(d, dref, v)
+
+
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_superblock_rows_match_expanded_rows(dev, kernel, cluster):
+    """Superblock rows against the same rows expanded to block ids
+    (-1 for members past nb, anywhere in a row): the same blocks at the
+    same list positions, so the same bits."""
+    from toycluster_tpu_torch.models.sph import expand_tail_rows
+    c = cusp.class_inputs(kernel, N, True, device=dev)
+    nb = c["pos_t"].shape[0]
+    assert nb % 8 != 0
+    args, dargs = _class_args(c)
+    rows = expand_tail_rows(c["cand"], nb).contiguous()
+    assert bool((rows[:, :-1] < 0).any())
+    eargs = args[:2] + (rows,) + args[3:]
+    edargs = dargs[:3] + (rows,) + dargs[4:]
+    kw = dict(kernel=kernel, cluster=cluster)
+    for a, b in zip(
+            cp.solve_density(*args, desnngb=c["desnngb"], sb_mode=True, **kw),
+            cp.solve_density(*eargs, desnngb=c["desnngb"], **kw)):
+        assert torch.equal(a, b)
+    assert torch.equal(cp.wvt_displacement(*dargs, sb_mode=True, **kw),
+                       cp.wvt_displacement(*edargs, **kw))
+
+
+@pytest.mark.parametrize("sb_mode", [False, True])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_empty_rows(dev, sb_mode, cluster):
+    """A row of only -1 entries: no pair, so no displacement, no density
+    but the self-correction, and h grown to the cap as in the plain
+    version; its neighbours are not disturbed."""
+    c = cusp.class_inputs("wc6", N, sb_mode, device=dev)
+    cand = c["cand"].clone()
+    cand[1] = -1
+    args, dargs = _class_args(c)
+    args = args[:2] + (cand,) + args[3:]
+    dargs = dargs[:3] + (cand,) + dargs[4:]
+    kw = dict(kernel="wc6", sb_mode=sb_mode)
+    st = torch.zeros((cand.shape[0], 4), dtype=torch.int32, device=dev)
+    got = cp.solve_density(*args, desnngb=c["desnngb"], **kw,
+                           cluster=cluster, stats=st)
+    ref = _solve_ref(args, dict(kw, desnngb=c["desnngb"]))
+    assert int(st[1, 1]) == 0 and int(st[1, 2]) == 0
+    assert not bool(got[4][1].any())
+    torch.testing.assert_close(got[1][1], ref[1][1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[0][1], ref[0][1], rtol=1e-4, atol=0)
+    _density_close(got, ref, c["valid"], c["desnngb"])
+    d = cp.wvt_displacement(*dargs, **kw, cluster=cluster)
+    assert bool((d[1] == 0).all()) and bool((d[0] != 0).any())
+
+
+def test_class_wrappers_raise_and_do_not_truncate(dev):
+    """A list longer than the kernels' shared-memory lists hold raises,
+    as does a cluster size the card does not take; nothing falls back to
+    the plain version on a CUDA tensor."""
+    c = cusp.class_inputs("m4", 3000, False, device=dev)
+    args, dargs = _class_args(c)
+    S = c["cand"].shape[0]
+    wide = torch.full((S, cp.MAX_CLUSTER * cp.MAX_SHARE + 1), -1,
+                      dtype=torch.int32, device=dev)
+    wide[:, :c["cand"].shape[1]] = c["cand"]
+    before = (cp.solve_density.launches, cp.wvt_displacement.launches)
+    with pytest.raises(ValueError, match="exceeds"):
+        cp.solve_density(*args[:2], wide, *args[3:], kernel="m4")
+    with pytest.raises(ValueError, match="exceeds"):
+        cp.wvt_displacement(*dargs[:3], wide, *dargs[4:], kernel="m4")
+    with pytest.raises(ValueError, match="cluster must be"):
+        cp.solve_density(*args, kernel="m4", cluster=16)
+    assert (cp.solve_density.launches,
+            cp.wvt_displacement.launches) == before
+    # the C entry point refuses what the wrapper would have refused
+    with pytest.raises(RuntimeError, match="launch failed"):
+        packed = cp.pack_sources(c["pos_t"], c["valid_t"], None, cusp.BOX)
+        rtab, flag, order = cp._row_tables(
+            c["cand"], c["pos_t"], c["cap"], None, c["cap"].amax(dim=1),
+            cusp.BOX, True)
+        out = torch.empty((S, 128, 5), device=dev)
+        sp._launch("solve_density", [
+            packed.src, packed.ctab, rtab, c["cand"], flag, order,
+            c["pos_t"], c["h0"], c["cap"], out, None, S, c["cand"].shape[1],
+            c["pos_t"].shape[0], 1, False, 8, True, 16, 1.0, cusp.BOX,
+            1.0 / cusp.BOX, 0.0, 50.0, 0.0])
 
 
 def test_wrapper_rejects_mixed_devices(dev):

@@ -27,7 +27,7 @@ import torch
 
 from .. import constants as const
 from ..ops import blocks as blk
-from ..ops.class_pair import solve_density
+from ..ops.class_pair import pack_sources, solve_density
 from ..ops.stream_pair import stream_wvt
 from ..particles import HaloArrays, Particles, gas_density
 from ..scene import Scene
@@ -376,6 +376,9 @@ def _solve_classed(state, h0_b, cfg, mpart, boxsize):
     pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(1, 2).contiguous()
     valid_t = bi.valid.to(torch.float32).reshape(nb, 1, blk.BLOCK)
     cap_b = state.h_cap.reshape(nb, blk.BLOCK)
+    # the kernel's source records, packed once for every call
+    packed = (pack_sources(pos_t, valid_t, None, float(boxsize))
+              if pos_t.is_cuda else None)
 
     def solve(ids, rows, sb_mode):
         idc = ids.long()
@@ -383,7 +386,7 @@ def _solve_classed(state, h0_b, cfg, mpart, boxsize):
             pos_t, valid_t, rows, pos_t[idc], h0_b[idc], cap_b[idc],
             float(mpart), float(boxsize), kernel=cfg.sph_kernel,
             desnngb=cfg.desnngb, n_sweeps=CLASSED_SWEEPS,
-            sb_mode=sb_mode)[:5]
+            sb_mode=sb_mode, packed=packed)[:5]
 
     return run_classed(state,
                        lambda ids, rows, cnt, m: solve(ids, rows, False),

@@ -31,8 +31,8 @@ import torch
 
 from .. import constants as const
 from ..ops import blocks as blk
-from ..ops.class_pair import (fused_bounds, fused_wvt, solve_density,
-                              wvt_displacement)
+from ..ops.class_pair import (fused_bounds, fused_wvt, pack_sources,
+                              solve_density, wvt_displacement)
 from ..ops.stream_pair import stream_wvt
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
@@ -156,14 +156,28 @@ class _Loop:
                              h0_b[idc], cap_b[idc], hm_b[idc], self.mpart,
                              self.boxsize, gdist=gdist, dkeep=dkeep, **kw)
 
+        packs = {}
+
+        def packed(h_blocks):
+            # the kernels' source records and chunk table, made once an
+            # iteration for all the calls below (the CPU path reads none)
+            if not pos_t.is_cuda:
+                return None
+            if (h_blocks is None) not in packs:
+                packs[h_blocks is None] = pack_sources(
+                    pos_t, valid_t, h_blocks, self.boxsize)
+            return packs[h_blocks is None]
+
         def two_pass(ids, rows, sb_mode):
             idc = ids.long()
             res = solve_density(pos_t, valid_t, rows, pos_t[idc], h0_b[idc],
                                 cap_b[idc], self.mpart, self.boxsize,
-                                sb_mode=sb_mode, **kw)[:5]
+                                sb_mode=sb_mode, packed=packed(None),
+                                **kw)[:5]
             return res + (wvt_displacement(
                 pos_t, valid_t, h_b3, rows, pos_t[idc], hm_b[idc], 1.0,
-                self.boxsize, kernel=self.kernel, sb_mode=sb_mode),)
+                self.boxsize, kernel=self.kernel, sb_mode=sb_mode,
+                packed=packed(h_b3)),)
 
         return sph_mod.run_classed(
             state,

@@ -20,27 +20,52 @@ operator is also the port's counterpart of the XLA pair operators
 * receivers ``xi (S, 3, 128)`` and per-lane ``(S, 128)`` rows.
 
 Each operator has two paths.  A CUDA tensor launches the hand-written
-kernel of ``csrc/`` (one CTA of 128 threads per receiver block) and
-counts the launch in ``<operator>.launches``; a CPU tensor runs the plain
-PyTorch version beside it, which keeps the TPU kernel's per-block sweep
-loop as a per-row mask.  Any other device raises.
+kernel of ``csrc/`` and counts the launch in ``<operator>.launches``; a
+CPU tensor runs the plain PyTorch version beside it, which keeps the TPU
+kernel's per-block sweep loop as a per-row mask.  Any other device
+raises.
+
+The ``solve_density`` and ``wvt_displacement`` kernels prune their listed
+blocks themselves with the chunk cross test of
+``stream_pair.member_keep`` (its plain oracles here: ``density_keep``,
+``displacement_keep``), drop the periodic wrap on the rows that
+``stream_pair.interior_rows`` flags, and split a row over a thread-block
+cluster when a call has too few rows to fill the card
+(``_cluster_size``).  Pruning and the dropped wrap change no bit of the
+outputs; the cluster size changes the order of the sums.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .. import constants as const
 from .blocks import BLOCK, SUPER, _interval_dist2
 from .kernels import WC6_NORM, m4_flat
-from .stream_pair import (_KIND, _PAIR_BUDGET, _check, _dens_sums, _launch,
-                          _norm_sums, _pair_dx, _rho_corr, _row_chunks,
-                          _update, gather_sources, list_entries)
+from .stream_pair import (_INFL, _KIND, _PAIR_BUDGET, _check, _dens_sums,
+                          _keep_rows, _launch, _norm_sums, _pair_dx,
+                          _recv_tab, _rho_corr, _row_chunks, _update,
+                          build_chunk_tab, gather_sources, interior_rows,
+                          list_entries)
 
 # sweep budgets of the TPU wrappers (solve_density_pallas,
 # fused_wvt_pallas); the count-class engine chooses its own per call site
 SOLVE_SWEEPS = 8
 FUSED_SWEEPS = 16
+# the list walk of csrc/class_walk.cuh: CTAs a row may be split over (a
+# thread-block cluster), and the list entries one CTA's shared-memory
+# list holds
+MAX_CLUSTER = 8
+MAX_SHARE = 1 << 14
+# a call is split over clusters while it has fewer CTAs than this (132
+# SMs, two to four resident CTAs of 512 threads each) and every CTA's
+# share of the row keeps at least _MIN_SHARE entries.  Over the 36 calls
+# of the 1e6 reference run the rule came within 3% of the best size per
+# call (python -m toycluster_tpu_torch.cluster_sweep, PERF.md).
+_FILL_CTAS = 528
+_MIN_SHARE = 32
 
 
 def _check_lists(pos_blocks, cand, xi, src_rows, lane_rows):
@@ -90,6 +115,116 @@ def _chunks(ok):
                        BLOCK * BLOCK), width
 
 
+class PackedSources(NamedTuple):
+    """The sources as the list-walk kernels read them: ``src`` (nb, 128,
+    4) records (x, y, z, w), ``ctab`` (nb, 64) their chunk table
+    (``stream_pair.build_chunk_tab``), ``w_max`` the largest w."""
+    src: torch.Tensor
+    ctab: torch.Tensor
+    w_max: torch.Tensor
+
+
+def pack_sources(pos_blocks, valid_blocks, h_blocks, boxsize):
+    """``PackedSources`` of ``solve_density`` (``h_blocks`` None: w is the
+    validity, a source takes part where w > 0) or of ``wvt_displacement``
+    (w = h on valid lanes, -1 elsewhere: a source takes part where w >=
+    0, so no valid lane is lost whatever its h).  A caller with several
+    calls over the same sources packs once and passes ``packed=``."""
+    w = valid_blocks[:, 0]
+    if h_blocks is not None:
+        w = torch.where(w > 0.5, h_blocks[:, 0], torch.full_like(w, -1.0))
+    src = torch.cat([pos_blocks, w[:, None]], dim=1).transpose(1, 2)
+    w0 = torch.clamp(w, min=0.0)
+    return PackedSources(src.contiguous(),
+                         build_chunk_tab(pos_blocks, w0, boxsize), w0.amax())
+
+
+def _check_packed(packed, nb, dev):
+    _check("packed.src", packed.src, torch.float32, (nb, BLOCK, 4), dev)
+    _check("packed.ctab", packed.ctab, torch.float32, (nb, 64), dev)
+
+
+def _cluster_size(n_rows, n_entries, cluster):
+    """CTAs a row is split over: ``cluster`` if given, else doubled from 1
+    while the call has fewer than _FILL_CTAS CTAs and every share keeps
+    _MIN_SHARE entries, or until a share fits a CTA's list.  Raises if no
+    allowed size holds the list."""
+    if cluster is None:
+        cluster = 1
+        while cluster < MAX_CLUSTER and (
+                -(-n_entries // cluster) > MAX_SHARE
+                or (n_rows * cluster < _FILL_CTAS
+                    and n_entries >= 2 * cluster * _MIN_SHARE)):
+            cluster *= 2
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, "
+                         f"not {cluster}")
+    if -(-n_entries // cluster) > MAX_SHARE:
+        raise ValueError(
+            f"a list of {n_entries} blocks over {cluster} CTAs exceeds the "
+            f"{MAX_SHARE} entries of a CTA's shared-memory list")
+    return cluster
+
+
+def _row_tables(cand, xi, cap, h_i, r_pair, boxsize, hoist):
+    """What the list-walk kernels read per row: the receiver chunks
+    (S, 8, 8) (largest cap in column 6 for the density, largest h_i in
+    column 7 for the displacement), the flag (S,) int32 of the rows that
+    skip the periodic wrap (``stream_pair.interior_rows`` at the row's
+    largest pair range ``r_pair``; zeros without ``hoist``), and the
+    rows ordered longest list first."""
+    lane = cap if cap is not None else h_i
+    rtab = _recv_tab(build_chunk_tab(xi, lane, boxsize), lane, h_i)
+    flag = interior_rows(xi, r_pair, boxsize).to(torch.int32)
+    if not hoist:
+        flag = torch.zeros_like(flag)
+    order = torch.argsort((cand >= 0).sum(dim=1), descending=True,
+                          stable=True).to(torch.int32)
+    return rtab.contiguous(), flag.contiguous(), order
+
+
+def _list_keep(rtab, ctab, cand, boxsize, do_disp, sb_mode):
+    """(kept, listed), each (S, E) bool: the listed source blocks the
+    chunk cross test keeps, and the valid list entries."""
+    cnt = torch.full((cand.shape[0],), cand.shape[1], dtype=torch.int32,
+                     device=cand.device)
+    dens, disp, ok = _keep_rows(rtab, ctab, cand, cnt, boxsize, do_disp,
+                                sb_mode)
+    return (disp if do_disp else dens), ok
+
+
+def density_keep(pos_blocks, valid_blocks, cand, xi, cap, boxsize, *,
+                 sb_mode=False):
+    """The plain oracle of ``solve_density``'s member test: (kept,
+    listed), each (S, E) bool, E = M or M * 8 with ``sb_mode``.  A listed
+    block is kept if the minimum-image gap between one of its 16-particle
+    chunk hulls and one of the receiver block's is at most that receiver
+    chunk's largest cap (inflated as ``stream_pair.member_keep`` does);
+    every operation rounds as in the kernel's test."""
+    ctab = build_chunk_tab(pos_blocks, valid_blocks[:, 0], boxsize)
+    rtab = _recv_tab(build_chunk_tab(xi, cap, boxsize), cap, None)
+    return _list_keep(rtab, ctab, cand, boxsize, False, sb_mode)
+
+
+def displacement_keep(pos_blocks, valid_blocks, h_blocks, cand, xi, h_i,
+                      boxsize, *, sb_mode=False):
+    """The plain oracle of ``wvt_displacement``'s member test, as
+    ``density_keep`` with the range 0.5 (the receiver chunk's largest h_i
+    + the source chunk's largest valid h) boxsize."""
+    ctab = pack_sources(pos_blocks, valid_blocks, h_blocks, boxsize).ctab
+    rtab = _recv_tab(build_chunk_tab(xi, h_i, boxsize), h_i, h_i)
+    return _list_keep(rtab, ctab, cand, boxsize, True, sb_mode)
+
+
+def _fill_stats(stats, sweeps, keep):
+    """(S, 4) int32 of a plain run: sweeps, blocks kept, blocks listed,
+    kept x sweeps."""
+    stats[:, 0] = sweeps
+    stats[:, 1] = keep[0].sum(dim=1)
+    stats[:, 2] = keep[1].sum(dim=1)
+    stats[:, 3] = stats[:, 0] * stats[:, 1]
+
+
 def fused_bounds(bb_lo, bb_hi, ids, cand, hmi_max, bhm, boxsize, *,
                  sb_mode=False):
     """``fused_wvt``'s (gdist, dkeep) for receiver blocks ``ids`` (S,)
@@ -115,7 +250,8 @@ def fused_bounds(bb_lo, bb_hi, ids, cand, hmi_max, bhm, boxsize, *,
 
 def solve_density(pos_blocks, valid_blocks, cand, xi, h0, cap, mpart,
                   boxsize, *, kernel="wc6", desnngb=295,
-                  n_sweeps=SOLVE_SWEEPS, sb_mode=False):
+                  n_sweeps=SOLVE_SWEEPS, sb_mode=False, prune=True,
+                  hoist=True, cluster=None, stats=None, packed=None):
     """Adaptive-hsml SPH density per receiver block (sph.c:13-214):
     ``n_sweeps`` Newton/bisection sweeps on (4pi/3) h^3 sum_j W(r, h) =
     DESNNGB, each lane frozen once |wkNgb - DESNNGB| < NNGBDEV.  A block
@@ -123,24 +259,52 @@ def solve_density(pos_blocks, valid_blocks, cand, xi, h0, cap, mpart,
     which always measures: rho, wkNgb and varHsmlFac are recorded at the
     h that sweep measured (with the Dehnen+12 WC6 correction).  Returns
     (rho, hsml, var_hsml_fac, wk_ngb, done, saturated), each (S, 128),
-    saturated = ~done | h >= 0.999 cap."""
+    saturated = ~done | h >= 0.999 cap.
+
+    The kernel walks only the listed blocks that ``density_keep`` keeps
+    (in each sweep those of them within the sweep's own ranges, the
+    current h of the lanes it still solves) and skips the periodic wrap
+    on interior rows; ``prune=False`` / ``hoist=False`` turn that off,
+    for the checks that neither changes a bit.  ``cluster`` (1..8) fixes
+    the CTAs a row is split over (None: ``_cluster_size``).  ``stats``, an
+    optional (S, 4) int32 output, receives per row the measuring sweeps,
+    the blocks kept, the blocks listed and the blocks walked over all
+    sweeps (the plain version evaluates every listed pair all the same
+    and reports kept x sweeps).
+    ``packed`` takes ``pack_sources(pos_blocks, valid_blocks, None,
+    boxsize)`` from a caller that made it already."""
     dev, nb, S, M = _check_lists(pos_blocks, cand, xi,
                                  dict(valid_blocks=valid_blocks),
                                  dict(h0=h0, cap=cap))
     _check_kernel(kernel)
     if n_sweeps < 1:
         raise ValueError("n_sweeps must be >= 1")
+    if stats is not None:
+        _check("stats", stats, torch.int32, (S, 4), dev)
     if dev.type == "cpu":
+        sweeps = None if stats is None else torch.zeros(
+            S, dtype=torch.int32)
         out = _solve_density_reference(
             pos_blocks, valid_blocks, cand, xi, h0, cap, mpart, boxsize,
             kernel=kernel, desnngb=desnngb, n_sweeps=n_sweeps,
-            sb_mode=sb_mode)
+            sb_mode=sb_mode, sweeps=sweeps)
+        if stats is not None:
+            _fill_stats(stats, sweeps, density_keep(
+                pos_blocks, valid_blocks, cand, xi, cap, boxsize,
+                sb_mode=sb_mode))
     else:
+        cluster = _cluster_size(S, M * SUPER if sb_mode else M, cluster)
+        if packed is None:
+            packed = pack_sources(pos_blocks, valid_blocks, None, boxsize)
+        _check_packed(packed, nb, dev)
+        rtab, flag, order = _row_tables(cand, xi, cap, None,
+                                        cap.amax(dim=1), boxsize, hoist)
         out = torch.empty((S, BLOCK, 5), dtype=torch.float32, device=dev)
         _launch("solve_density", [
-            pos_blocks, valid_blocks, cand, xi, h0, cap, out, S, M, nb,
-            _KIND[kernel], bool(sb_mode), n_sweeps, float(mpart),
-            float(boxsize), float(desnngb),
+            packed.src, packed.ctab, rtab, cand, flag, order, xi, h0, cap,
+            out, stats, S, M, nb, _KIND[kernel], bool(sb_mode), n_sweeps,
+            bool(prune), cluster, float(mpart), float(boxsize),
+            float(1.0 / boxsize), float(_INFL * boxsize), float(desnngb),
             float(_rho_corr(desnngb, mpart, kernel))])
         solve_density.launches += 1
     rho, h, vf, wk, done = (out[:, :, k] for k in range(5))
@@ -202,22 +366,45 @@ def _solve_density_reference(pos_blocks, valid_blocks, cand, xi, h0, cap,
 # --------------------------------------------------------------------------
 
 def wvt_displacement(pos_blocks, valid_blocks, h_blocks, cand, xi, h_i,
-                     step, boxsize, *, kernel="wc6", sb_mode=False):
+                     step, boxsize, *, kernel="wc6", sb_mode=False,
+                     prune=True, hoist=True, cluster=None, stats=None,
+                     packed=None):
     """WVT repulsion (wvt_relax.c:126-171): delta_i = step sum_j h_i
     W(r/hbar) dx/r in box units over valid j with 0 < r < hbar = (h_i +
-    h_j)/2, h the metric hsml in box units.  Returns (S, 128, 3)."""
+    h_j)/2, h the metric hsml in box units (>= 0).  Returns (S, 128, 3).
+
+    ``prune``, ``hoist``, ``cluster`` and ``stats`` as for
+    ``solve_density`` (the member test is ``displacement_keep``; one
+    pass, so stats column 0 is 1 and column 3 the blocks kept);
+    ``packed`` takes ``pack_sources(pos_blocks,
+    valid_blocks, h_blocks, boxsize)``."""
     dev, nb, S, M = _check_lists(pos_blocks, cand, xi,
                                  dict(valid_blocks=valid_blocks,
                                       h_blocks=h_blocks), dict(h_i=h_i))
     _check_kernel(kernel)
+    if stats is not None:
+        _check("stats", stats, torch.int32, (S, 4), dev)
     if dev.type == "cpu":
+        if stats is not None:
+            _fill_stats(stats, 1, displacement_keep(
+                pos_blocks, valid_blocks, h_blocks, cand, xi, h_i, boxsize,
+                sb_mode=sb_mode))
         return _wvt_displacement_reference(
             pos_blocks, valid_blocks, h_blocks, cand, xi, h_i, step,
             boxsize, kernel=kernel, sb_mode=sb_mode)
+    cluster = _cluster_size(S, M * SUPER if sb_mode else M, cluster)
+    if packed is None:
+        packed = pack_sources(pos_blocks, valid_blocks, h_blocks, boxsize)
+    _check_packed(packed, nb, dev)
+    r_pair = 0.5 * (h_i.amax(dim=1) + packed.w_max) * boxsize
+    rtab, flag, order = _row_tables(cand, xi, None, h_i, r_pair, boxsize,
+                                    hoist)
     out = torch.empty((S, BLOCK, 3), dtype=torch.float32, device=dev)
     _launch("wvt_displacement", [
-        pos_blocks, valid_blocks, h_blocks, cand, xi, h_i, out, S, M, nb,
-        _KIND[kernel], bool(sb_mode), float(step), float(boxsize)])
+        packed.src, packed.ctab, rtab, cand, flag, order, xi, h_i, out,
+        stats, S, M, nb, _KIND[kernel], bool(sb_mode), bool(prune), cluster,
+        float(step), float(boxsize), float(1.0 / boxsize),
+        float(_INFL * boxsize)])
     wvt_displacement.launches += 1
     return out
 

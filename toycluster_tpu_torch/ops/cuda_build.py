@@ -6,7 +6,8 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 hash of the source, the headers of ``csrc/`` and the flags, and loaded
 with ``ctypes``.  ``build`` compiles several kernels at once, one ``nvcc``
 process each.  Nothing is compiled at import time; the CPU never reaches
-this module.
+this module.  ``csrc=`` builds the sources of another directory (another
+tree's kernels, to time them beside this tree's in one process).
 """
 
 from __future__ import annotations
@@ -38,19 +39,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
+    src = csrc / f"{name}.cu"
     blob = src.read_bytes() + b"".join(
-        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+        p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
     key = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()
                          ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def build(names) -> None:
-    """Compile the kernels ``names`` that are not built yet, all nvcc
-    processes started together; raises if any fails."""
-    todo = [(n, _lib_path(n)) for n in names]
+def build(names, csrc: Path = CSRC) -> None:
+    """Compile the kernels ``names`` of ``csrc`` that are not built yet,
+    all nvcc processes started together; raises if any fails."""
+    todo = [(n, _lib_path(n, csrc)) for n in names]
     todo = [(n, p) for n, p in todo if not p.exists()]
     if not todo:
         return
@@ -60,7 +61,7 @@ def build(names) -> None:
     for name, lib_path in todo:
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         procs.append((name, lib_path, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
     for name, lib_path, tmp, proc in procs:
@@ -74,11 +75,10 @@ def build(names) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The compiled library of ``csrc/<name>.cu``, building it if needed."""
-    if name in _LIBS:
-        return _LIBS[name]
-    build([name])
-    lib = ctypes.CDLL(str(_lib_path(name)))
-    _LIBS[name] = lib
-    return lib
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The compiled library of ``<csrc>/<name>.cu``, building it if
+    needed."""
+    if (name, csrc) not in _LIBS:
+        build([name], csrc)
+        _LIBS[name, csrc] = ctypes.CDLL(str(_lib_path(name, csrc)))
+    return _LIBS[name, csrc]

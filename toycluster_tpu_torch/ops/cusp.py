@@ -64,14 +64,15 @@ def wvt_inputs(kernel, do_disp, n, seed=7, device="cpu", centre=BOX / 2):
     return args, kw, valid
 
 
-def class_inputs(kernel, n, sb_mode, seed=7, device="cpu"):
+def class_inputs(kernel, n, sb_mode, seed=7, device="cpu", centre=BOX / 2):
     """The count-class operators' arrays for the cusp (cap = 3 h0),
     with block-granular lists (``find_candidates``) or, with
     ``sb_mode``, superblock lists over every receiver row.  Returns a
     dict: pos_t, valid_t, hm_blocks (hm on real lanes, else 0), h_b3 (hm
     on every lane), cand, cnt, h0, cap, hm (S, 128), the fused bounds
     gdist/dkeep, valid (S, 128) and desnngb."""
-    pos, h0 = (torch.as_tensor(a, device=device) for a in cusp_points(n, seed))
+    pos, h0 = (torch.as_tensor(a, device=device)
+               for a in cusp_points(n, seed, centre))
     bi = blk.build_blocks(pos, BOX)
     nb = bi.n_blocks
     hs = blk.pad_rows(h0[bi.order], bi.n_padded)

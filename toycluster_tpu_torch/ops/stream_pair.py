@@ -114,11 +114,15 @@ def _pad_superblocks(src_blocks):
 
 def _launch(lib, args):
     """Launch the C entry point ``<lib>_launch`` of csrc/<lib>.cu on the
-    current stream: a tensor (or None) is passed as a pointer, a Python
-    float as a C float, anything else as a C int; raises on a CUDA
-    error."""
+    current stream (``_call``)."""
     from .cuda_build import load
-    fn = getattr(load(lib), f"{lib}_launch")
+    _call(getattr(load(lib), f"{lib}_launch"), lib, args)
+
+
+def _call(fn, lib, args):
+    """Call the C launcher ``fn`` of kernel ``lib`` on the current stream:
+    a tensor (or None) is passed as a pointer, a Python float as a C
+    float, anything else as a C int; raises on a CUDA error."""
     fn.argtypes = [ctypes.c_void_p if a is None or torch.is_tensor(a) else
                    ctypes.c_float if isinstance(a, float) else ctypes.c_int
                    for a in args] + [ctypes.c_void_p]
