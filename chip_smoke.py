@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 With ``--parent-csrc DIR`` (the csrc directory of another tree whose
-solve_density and wvt_displacement kernels have the one-CTA-a-row C
+fused_wvt and stream_curl kernels have the one-CTA-of-128-threads C
 interface) step 5 also builds those two kernels and times them on the same
 recorded inputs, in turns with this tree's (parent, change, change,
 parent).
@@ -46,11 +46,14 @@ parent).
    the larger of its fp32 operations over the card's fp32 peak and its
    bytes (inputs read once, outputs written once) over the HBM peak,
    with the operations counted from this run's data (the members the
-   chunk test keeps for the stream kernels and for wvt_displacement, the
-   blocks solve_density's sweeps walked (of the blocks its test keeps,
-   those within each sweep's own ranges), the blocks within fused_wvt's
-   distance bounds, the sweeps the kernel or the plain version took,
-   and the periodic wrap only on the rows whose reach leaves the box).
+   chunk test keeps for stream_wvt and for wvt_displacement, the blocks
+   the sweeps of solve_density walked (of the blocks its test keeps,
+   those within each sweep's own ranges), the warp tiles (32 receiver
+   lanes x 32 sources, 16 a block) that stream_curl and the sweeps of
+   fused_wvt walked and one displacement pass over fused_wvt's
+   displacement tiles, the sweeps the kernel took, and the periodic wrap
+   only on the rows whose reach leaves the box).  fused_wvt is also timed
+   without its frozen-lane skip and without its warp tiles.
 
 Prints the kernel record and the card line before the last line, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits nonzero
@@ -89,6 +92,7 @@ LIBS = ("stream_wvt", "stream_curl", "solve_density", "wvt_displacement",
 PEAK_FP32 = 67e12
 PEAK_HBM = 3.35e12
 PAIRS = 128 * 128       # pairs of one receiver block and one source block
+TILE_PAIRS = 32 * 32    # pairs of one warp tile, 16 a block
 # fp32 operations of one evaluated pair on the path of a pair out of
 # range, counted from the kernels' sources (an FMA counts 2): the
 # separation (3 subtractions; r2, a mul and 2 FMAs), the per-pair wrap
@@ -99,6 +103,14 @@ OPS_DIST, OPS_WRAP = 8, 12
 OPS_DENS = {"wc6": 1, "m4": 2}  # r2 / h^2; M4: sqrt and r / h
 OPS_UNION = 7                   # rsqrt, max, r, r / h, hbar (2), hbar^2
 OPS_DISP = 6                    # to box units (3), hbar (2), hbar^2
+# what a check may measure besides the contract's keys: stream_wvt
+# without hoisting, the parent's kernel, a kernel without pruning and
+# hoisting, on one CTA a row, fused_wvt without the frozen-lane skip and
+# without the warp tiles; the blocks kept of those listed, the blocks
+# walked of listed x sweeps, the tiles walked of 16 x the blocks walked
+EXTRA_KEYS = ("ms_unhoisted", "parent_ms", "ms_unpruned", "ms_cluster1",
+              "cluster", "kept_over_listed", "walked_over_listed",
+              "tiles_over_walked", "ms_no_skip", "ms_no_tiles")
 # the kernel records of the classed main path
 CLASSED_NAMES = ("solve_density", "solve_density_sb", "wvt_displacement",
                  "wvt_displacement_sb", "fused_wvt", "stream_curl_blocks")
@@ -294,64 +306,111 @@ def check_wvt(torch, sp, args, kw, valid, tag):
     return res
 
 
-def check_curl(torch, sp, args, kw, valid):
-    """stream_curl against its plain version; its bound counts the pairs
-    of the member blocks that stream_wvt's chunk test keeps at the curl's
-    range (r < hsml_i), as the TPU curl prunes them."""
-    got = sp.stream_curl(*args, **kw)
-    torch.cuda.synchronize()
-    ref = sp._stream_curl_reference(*args, **kw)
+def check_curl(torch, sp, args, kw, valid, parent=None):
+    """stream_curl against its plain version, with the checks of
+    ``list_walk_checks`` and one CTA a row against the cluster the wrapper
+    chooses; the warp tiles the kernel walked must be the plain oracle's,
+    row by row; its bound counts the pairs of the tiles that its chunk
+    test keeps at the curl's range (r < hsml_i)."""
+    plain_kw = {k: v for k, v in kw.items() if k != "packed"}
+    sb_mode = kw.get("sb_mode", False)
     src, cand, cnt, xi, hsml = args[:5]
     box = args[8]
-    rtab = sp._recv_tab(sp.build_chunk_tab(xi, hsml, box), hsml, None)
-    kept, _, listed = sp._keep_rows(
-        rtab, sp.build_chunk_tab(src[:, :3], src[:, 3], box), cand, cnt, box,
-        False, sb_mode=kw.get("sb_mode", False))
-    kept = kept.sum(dim=1)
-    ops = PAIRS * float((kept * dist_ops(sp, xi, hsml.amax(dim=1),
-                                         box)).sum())
-    say(f"  stream_curl sb_mode={kw.get('sb_mode', False)}: the chunk test "
-        f"keeps {int(kept.sum())} of {int(listed.sum())} listed blocks")
-    b_ms, b_by = bound(ops, nbytes(*args) + cand.shape[0] * 128 * 3 * 4)
-    return dict(err=compare_curl(torch, got, ref, valid),
-                ms=event_ms(torch, lambda: sp.stream_curl(*args, **kw), 5),
-                plain_ms=event_ms(torch, lambda: sp._stream_curl_reference(
-                    *args, **kw), 1), bound_ms=b_ms, bound_by=b_by)
+    S = cand.shape[0]
+    cluster = sp._cluster_size(S, cand.shape[1] * (8 if sb_mode else 1),
+                               None)
+    st = torch.zeros((S, 5), dtype=torch.int32, device=cand.device)
+
+    def run(**options):
+        return sp.stream_curl(*args, **kw, **options)
+
+    got = run(stats=st)
+    keep, ok = sp.curl_keep(src, cand, cnt, xi, hsml, box, sb_mode=sb_mode,
+                            tiles=True)
+    kept = list_walk_checks(torch, f"stream_curl sb_mode={sb_mode}", run,
+                            torch.equal, st, keep.any(dim=2), ok)
+    tiles = keep.sum(dim=(1, 2))
+    if not torch.equal(st[:, 4].long(), tiles):
+        fail(f"stream_curl: the kernel walked {int(st[:, 4].sum())} warp "
+             f"tiles, the plain test keeps {int(tiles.sum())}")
+    ref = sp._stream_curl_reference(*args, **plain_kw)
+    res = dict(err=compare_curl(torch, got, ref, valid), cluster=cluster,
+               kept_over_listed=int(kept.sum()) / max(int(ok.sum()), 1),
+               tiles_over_walked=int(tiles.sum()) / max(
+                   16 * int(kept.sum()), 1))
+    if cluster > 1:
+        compare_curl(torch, run(cluster=1), ref, valid)
+        res["ms_cluster1"] = event_ms(torch, lambda: run(cluster=1), 2)
+    ops = TILE_PAIRS * float((tiles * dist_ops(sp, xi, hsml.amax(dim=1),
+                                               box)).sum())
+    res["bound_ms"], res["bound_by"] = bound(
+        ops, nbytes(*args) + S * 128 * 3 * 4)
+    if parent is not None:
+        compare_curl(torch, parent.stream_curl(torch, args, plain_kw), ref,
+                     valid)
+        res["parent_ms"], res["ms"] = ab_ms(
+            torch, lambda: parent.stream_curl(torch, args, plain_kw), run, 3)
+    else:
+        res["ms"] = event_ms(torch, run, 5)
+    res["ms_unpruned"] = event_ms(torch, lambda: run(prune=False,
+                                                     hoist=False), 2)
+    res["plain_ms"] = event_ms(torch, lambda: sp._stream_curl_reference(
+        *args, **plain_kw), 1)
+    return res
 
 
 class ParentKernels:
-    """solve_density and wvt_displacement of another tree's csrc
-    directory (the C interface of the one-CTA-of-128-threads kernels),
-    built beside this tree's to time both on the same inputs."""
+    """fused_wvt and stream_curl of another tree's csrc directory (the C
+    interface of the one-CTA-of-128-threads kernels), built beside this
+    tree's to time both on the same inputs."""
 
     def __init__(self, sp, csrc):
         from toycluster_tpu_torch.ops import cuda_build
-        self.sp, names = sp, ("solve_density", "wvt_displacement")
+        self.sp, names = sp, ("fused_wvt", "stream_curl")
         cuda_build.build(names, Path(csrc))
         self.fn = {n: getattr(cuda_build.load(n, Path(csrc)), f"{n}_launch")
                    for n in names}
 
-    def solve_density(self, torch, args, kw, n_sweeps):
-        pos, valid_t, cand, xi, h0, cap, mpart, box = args
-        out = torch.empty((cand.shape[0], 128, 5), dtype=torch.float32,
+    def bounds(self, torch, args, full):
+        """The (gdist, dkeep) that tree's main path gave its fused_wvt
+        (class_pair.fused_bounds): block-box distances against the widest
+        displacement range, from the recorded positions."""
+        from toycluster_tpu_torch.ops.blocks import _interval_dist2
+        pos, hm_blocks, cand, cnt, xi, _, _, hm_i, _, box = args
+        e, ok = self.sp._listed_members(cand, cnt, pos.shape[0],
+                                        full["sb_mode"])
+        lo_s, hi_s = self.sp._wrapped_bounds(pos, box)
+        lo_r, hi_r = self.sp._wrapped_bounds(xi, box)
+        d2 = _interval_dist2(lo_r[:, None], hi_r[:, None], lo_s[e], hi_s[e],
+                             box)
+        gd = torch.where(ok, torch.sqrt(d2),
+                         torch.full_like(d2, float("inf")))
+        dk = gd <= 0.5 * (hm_i.amax(dim=1)[:, None]
+                          + hm_blocks[:, 0].amax(dim=1)[e]) * box
+        return gd.to(torch.float32).contiguous(), dk.to(torch.uint8)
+
+    def fused_wvt(self, torch, args, full, gdist, dkeep):
+        pos, hm_blocks, cand, cnt, xi, h0, cap, hm_i, mpart, box = args
+        out = torch.empty((cand.shape[0], 128, 8), dtype=torch.float32,
                           device=cand.device)
-        self.sp._call(self.fn["solve_density"], "parent solve_density", [
-            pos, valid_t, cand, xi, h0, cap, out, cand.shape[0],
-            cand.shape[1], pos.shape[0], self.sp._KIND[kw["kernel"]],
-            bool(kw.get("sb_mode")), n_sweeps, float(mpart), float(box),
-            float(kw["desnngb"]), float(self.sp._rho_corr(
-                kw["desnngb"], mpart, kw["kernel"]))])
+        self.sp._call(self.fn["fused_wvt"], "parent fused_wvt", [
+            pos, hm_blocks, cand, cnt, xi, h0, cap, hm_i, gdist, dkeep, out,
+            cand.shape[0], cand.shape[1], pos.shape[0],
+            self.sp._KIND[full["kernel"]], bool(full["sb_mode"]),
+            bool(full["do_disp"]), full["n_sweeps"], float(mpart),
+            float(box), float(full["desnngb"]), float(self.sp._rho_corr(
+                full["desnngb"], mpart, full["kernel"]))])
         return out
 
-    def wvt_displacement(self, torch, args, kw):
-        pos, valid_t, h_blocks, cand, xi, h_i, step, box = args
+    def stream_curl(self, torch, args, kw):
+        src, cand, cnt, xi, hsml, wfac, apot, _, box = args
+        sb_mode = bool(kw.get("sb_mode"))
         out = torch.empty((cand.shape[0], 128, 3), dtype=torch.float32,
                           device=cand.device)
-        self.sp._call(self.fn["wvt_displacement"], "parent wvt_displacement",
-                      [pos, valid_t, h_blocks, cand, xi, h_i, out,
-                       cand.shape[0], cand.shape[1], pos.shape[0],
-                       self.sp._KIND[kw["kernel"]], bool(kw.get("sb_mode")),
-                       float(step), float(box)])
+        self.sp._call(self.fn["stream_curl"], "parent stream_curl", [
+            self.sp._pad_superblocks(src) if sb_mode else src, cand, cnt, xi,
+            hsml, wfac, apot, out, cand.shape[0], cand.shape[1],
+            src.shape[0], self.sp._KIND[kw["kernel"]], sb_mode, float(box)])
         return out
 
 
@@ -366,7 +425,7 @@ def ab_ms(torch, parent_fn, fn, reps):
 
 
 def list_walk_checks(torch, name, run, same, st, keep, ok):
-    """What solve_density and wvt_displacement share: ``run(**options)``
+    """What the four list-walk kernels share: ``run(**options)``
     launches the kernel; pruned against unpruned and unwrapped against
     wrapped runs must agree to the bit, a second run must repeat the bits,
     and the blocks the kernel kept (``st``, its stats) must be the plain
@@ -390,7 +449,7 @@ def list_walk_checks(torch, name, run, same, st, keep, ok):
     return kept
 
 
-def check_solve(torch, sp, cp, args, kw, valid, parent=None):
+def check_solve(torch, sp, cp, args, kw, valid):
     """solve_density against its plain version, with the checks of
     ``list_walk_checks``; its bound counts the pairs of the blocks its
     sweeps walked (of the kept blocks, those within each sweep's own
@@ -442,15 +501,7 @@ def check_solve(torch, sp, cp, args, kw, valid, parent=None):
         sp, xi, cap.amax(dim=1), box) + OPS_DENS[kw["kernel"]])).sum())
     res["bound_ms"], res["bound_by"] = bound(
         ops, nbytes(*args) + S * 128 * 5 * 4)
-    if parent is not None:
-        compare_wvt(torch, unpack(parent.solve_density(
-            torch, args, kw, n_sweeps), False), ref, valid, kw["desnngb"],
-            False, "parent solve_density")
-        res["parent_ms"], res["ms"] = ab_ms(
-            torch, lambda: parent.solve_density(torch, args, kw, n_sweeps),
-            run, 3)
-    else:
-        res["ms"] = event_ms(torch, run, 5)
+    res["ms"] = event_ms(torch, run, 5)
     res["ms_unpruned"] = event_ms(torch, lambda: run(prune=False,
                                                      hoist=False), 2)
     res["plain_ms"] = event_ms(torch, lambda: cp._solve_density_reference(
@@ -458,7 +509,7 @@ def check_solve(torch, sp, cp, args, kw, valid, parent=None):
     return res
 
 
-def check_disp(torch, sp, cp, args, kw, valid, parent=None):
+def check_disp(torch, sp, cp, args, kw, valid):
     """wvt_displacement against its plain version, as ``check_solve``."""
     plain_kw = {k: kw[k] for k in ("kernel", "sb_mode") if k in kw}
     pos, valid_t, h_blocks, cand, xi, h_i, _, box = args
@@ -490,13 +541,7 @@ def check_disp(torch, sp, cp, args, kw, valid, parent=None):
                                  + OPS_DISP)).sum())
     res["bound_ms"], res["bound_by"] = bound(
         ops, nbytes(*args) + S * 128 * 3 * 4)
-    if parent is not None:
-        compare_disp(torch, parent.wvt_displacement(torch, args, kw), ref,
-                     valid, "parent wvt_displacement")
-        res["parent_ms"], res["ms"] = ab_ms(
-            torch, lambda: parent.wvt_displacement(torch, args, kw), run, 3)
-    else:
-        res["ms"] = event_ms(torch, run, 5)
+    res["ms"] = event_ms(torch, run, 5)
     res["ms_unpruned"] = event_ms(torch, lambda: run(prune=False,
                                                      hoist=False), 2)
     res["plain_ms"] = event_ms(
@@ -504,44 +549,112 @@ def check_disp(torch, sp, cp, args, kw, valid, parent=None):
     return res
 
 
-def check_fused(torch, sp, cp, args, kw, valid):
-    """Kernel vs plain with the caller's bounds, and bit-identical
-    kernel outputs with and without them."""
+def check_fused(torch, sp, cp, args, kw, valid, parent=None):
+    """fused_wvt against its plain version, with the checks of
+    ``list_walk_checks``; bit-identical outputs with and without the
+    caller's bounds, with and without the frozen-lane skip, and with and
+    without the warp tiles.  Its bound counts the pairs of the density
+    tiles its sweeps walked (the kernel's count) and the displacement's
+    operations on the tiles kept for it (the separations of a tile in
+    both are counted once)."""
     kw = dict(kw)
     n_sweeps = kw.pop("n_sweeps", cp.FUSED_SWEEPS)
+    packed = kw.pop("packed", None)
     full = dict(kw, n_sweeps=n_sweeps, do_disp=kw.get("do_disp", True),
                 sb_mode=kw.get("sb_mode", False), gdist=kw.get("gdist"),
                 dkeep=kw.get("dkeep"))
-    got = cp.fused_wvt(*args, **full)
-    unbounded = cp.fused_wvt(*args, **dict(full, gdist=None, dkeep=None))
-    torch.cuda.synchronize()
-    for a, b in zip(got, unbounded):
-        if not torch.equal(a, b):
-            fail("fused_wvt: the distance bounds changed the result")
     pos, hm_blocks, cand, cnt, xi, _, cap, hm_i, _, box = args
-    sweeps = torch.zeros(cand.shape[0], dtype=torch.int32,
-                         device=cand.device)
+    S = cand.shape[0]
+    st = torch.zeros((S, 5), dtype=torch.int32, device=cand.device)
+
+    def run(**options):
+        return cp.fused_wvt(*args, **{**full, "packed": packed, **options})
+
+    def raw(debug=0):
+        # the C entry point's debug bits: 1, no frozen-lane skip; 2, every
+        # warp runs every kept block
+        out = cp._fused_wvt_cuda(*args, **full, prune=True, hoist=True,
+                                 stats=None, packed=packed, debug=debug)
+        return out if full["do_disp"] else out[..., :5]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    got = run(stats=st)
+    if full["gdist"] is not None or full["dkeep"] is not None:
+        if not same(got, run(gdist=None, dkeep=None)):
+            fail("fused_wvt: the distance bounds changed the result")
+    dens_t, disp_t, ok = cp.fused_keep(
+        pos, hm_blocks, cand, cnt, xi, cap, hm_i, box, tiles=True,
+        **{k: full[k] for k in ("sb_mode", "do_disp", "gdist", "dkeep")})
+    dens, disp = dens_t.any(dim=2), disp_t.any(dim=2)
+    kept = list_walk_checks(torch, "fused_wvt", run, same, st, dens | disp,
+                            ok)
+    base = raw()
+    if not torch.equal(base[..., :5], torch.stack(
+            got[:4] + (got[4].float(),), dim=-1)):
+        fail("fused_wvt: the wrapper and the C entry point disagree")
+    for what, debug in (("the frozen-lane skip", 1), ("the warp tiles", 2),
+                        ("both", 3)):
+        if not torch.equal(base, raw(debug)):
+            fail(f"fused_wvt: switching off {what} changed the result")
+    torch.cuda.synchronize()
+    sweeps = torch.zeros(S, dtype=torch.int32, device=cand.device)
     ref = cp._fused_wvt_reference(*args, **full, sweeps=sweeps)
     err = compare_wvt(torch, got, unpack(ref, full["do_disp"]), valid,
                       kw["desnngb"], full["do_disp"], "fused_wvt")
-    ok = listed_blocks(torch, sp, cand, cnt, pos.shape[0], full["sb_mode"])
-    dens, disp = ok, ok if full["do_disp"] else torch.zeros_like(ok)
-    if full["gdist"] is not None:
-        dens = ok & (full["gdist"] <= cap.amax(dim=1)[:, None])
-    if full["dkeep"] is not None:
-        disp = disp & full["dkeep"]
-    r_disp = 0.5 * (hm_i.amax(dim=1) + hm_blocks.max()) * box
-    ops = PAIRS * float(
-        (dens.sum(dim=1) * sweeps * (dist_ops(sp, xi, cap.amax(dim=1), box)
-                                     + OPS_DENS[kw["kernel"]])).sum()
-        + (disp.sum(dim=1) * (dist_ops(sp, xi, r_disp, box)
-                              + OPS_DISP)).sum())
-    b_ms, b_by = bound(ops, nbytes(*args, full["gdist"], full["dkeep"])
-                       + cand.shape[0] * 128 * 8 * 4)
-    return dict(err=err, ms=event_ms(torch, lambda: cp.fused_wvt(
-        *args, **full), 5), plain_ms=event_ms(
-        torch, lambda: cp._fused_wvt_reference(*args, **full), 1),
-        bound_ms=b_ms, bound_by=b_by)
+    walked, most = st[:, 3].long(), dens.sum(dim=1) * st[:, 0]
+    tiles, most_t = st[:, 4].long(), dens_t.sum(dim=(1, 2)) * st[:, 0]
+    if bool((walked > most).any()) or int(walked.sum()) <= 0:
+        fail(f"fused_wvt: {int(walked.sum())} density blocks walked, "
+             f"{int(most.sum())} kept x sweeps")
+    if bool((tiles > most_t).any()) or bool((tiles < walked).any()):
+        fail(f"fused_wvt: {int(tiles.sum())} density tiles walked, "
+             f"{int(most_t.sum())} kept x sweeps, in {int(walked.sum())} "
+             f"blocks")
+    say(f"  fused_wvt: sweeps per row (median, p99, max) kernel "
+        f"{quantiles(torch, st[:, 0])}, plain {quantiles(torch, sweeps)}; "
+        f"kept for the density {int(dens.sum()) / max(int(ok.sum()), 1):.4f}"
+        f" of listed, for the displacement "
+        f"{int(disp.sum()) / max(int(ok.sum()), 1):.4f}; density blocks "
+        f"walked over all sweeps {quantiles(torch, walked)}, walked / (kept "
+        f"x sweeps) {int(walked.sum()) / max(int(most.sum()), 1):.4f}; "
+        f"density tiles walked / (16 x blocks walked) "
+        f"{int(tiles.sum()) / max(16 * int(walked.sum()), 1):.4f}, "
+        f"displacement tiles kept / (16 x blocks kept) "
+        f"{int(disp_t.sum()) / max(16 * int(disp.sum()), 1):.4f}; runs "
+        f"without the frozen-lane skip and the warp tiles bit-identical")
+    hm_rows = hm_i if full["do_disp"] else None
+    r_pair = sp.pair_range(cap, hm_rows, hm_blocks.max(), box)
+    ops = TILE_PAIRS * float(
+        (tiles * (dist_ops(sp, xi, r_pair, box) + OPS_DENS[kw["kernel"]])
+         + disp_t.sum(dim=(1, 2)) * OPS_DISP).sum())
+    res = dict(err=err,
+               kept_over_listed=int(kept.sum()) / max(int(ok.sum()), 1),
+               walked_over_listed=int(walked.sum()) / max(
+                   int((ok.sum(dim=1) * st[:, 0]).sum()), 1),
+               tiles_over_walked=int(tiles.sum()) / max(
+                   16 * int(walked.sum()), 1))
+    res["bound_ms"], res["bound_by"] = bound(
+        ops, nbytes(*args, full["gdist"], full["dkeep"]) + S * 128 * 8 * 4)
+    if parent is not None:
+        gd, dk = parent.bounds(torch, args, full)
+        compare_wvt(torch, unpack(parent.fused_wvt(
+            torch, args, full, gd, dk), full["do_disp"]),
+            unpack(ref, full["do_disp"]), valid, kw["desnngb"],
+            full["do_disp"], "parent fused_wvt")
+        res["parent_ms"], res["ms"] = ab_ms(
+            torch, lambda: parent.fused_wvt(torch, args, full, gd, dk), run,
+            3)
+    else:
+        res["ms"] = event_ms(torch, run, 5)
+    res["ms_unpruned"] = event_ms(torch, lambda: run(prune=False,
+                                                     hoist=False), 2)
+    res["ms_no_skip"], res["ms_no_tiles"] = ab_ms(
+        torch, lambda: raw(1), lambda: raw(2), 3)
+    res["plain_ms"] = event_ms(
+        torch, lambda: cp._fused_wvt_reference(*args, **full), 1)
+    return res
 
 
 def check_kernels_on_cusp(torch, sp, cp, device):
@@ -560,7 +673,8 @@ def check_kernels_on_cusp(torch, sp, cp, device):
             r = check_curl(torch, sp, args, kw, valid)
             say(f"cusp 1e5 stream_curl kernel={kernel} sb_mode={sb_mode}: "
                 f"width={args[1].shape[1]} max|dB|/max|B|={r['err']:.3g} "
-                f"kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f}")
+                f"kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} "
+                f"bound_ms={r['bound_ms']:.3f}")
         for sb_mode in (False, True):
             c = cusp.class_inputs(kernel, n, sb_mode, device=device)
             v = c["valid"]
@@ -585,7 +699,8 @@ def check_kernels_on_cusp(torch, sp, cp, device):
                 dict(kw, gdist=c["gdist"], dkeep=c["dkeep"]), v)
             say(f"cusp 1e5 fused_wvt {tag}: bounds bit-identical, "
                 f"max|dwk|={r['err']:.3g} kernel_ms={r['ms']:.3f} "
-                f"plain_ms={r['plain_ms']:.3f}")
+                f"plain_ms={r['plain_ms']:.3f} "
+                f"bound_ms={r['bound_ms']:.3f}")
 
 
 # --------------------------------------------------------------- main path
@@ -724,8 +839,8 @@ def run_main_path(torch, sp, cp, tmp, engine):
 def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
     """Kernel vs plain on the inputs of each kernel's first main-path
     call: agreement, CUDA-event times and bounds.  These launches come
-    after the counted runs.  With ``parent`` (ParentKernels) the four
-    solve_density and wvt_displacement records also time its kernels."""
+    after the counted runs.  With ``parent`` (ParentKernels) the
+    fused_wvt and stream_curl records also time its kernels."""
     res = {}
     args, kw = recorded["stream_wvt"]
     res["stream_wvt"] = check_wvt(
@@ -749,17 +864,16 @@ def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
              lambda a: torch.ones_like(a[5], dtype=torch.bool))):
         args, kw = recorded[name]
         if check is check_curl:
-            res[name] = check(torch, sp, args, kw, valid_of(args))
-        elif check in (check_solve, check_disp):
+            res[name] = check(torch, sp, args, kw, valid_of(args), parent)
+        elif check is check_fused:
             res[name] = check(torch, sp, cp, args, kw, valid_of(args),
                               parent)
         elif check is not None:
             res[name] = check(torch, sp, cp, args, kw, valid_of(args))
         cand = args[cand_arg]
         r = res[name]
-        extra = "".join(f" {k}={r[k]:.6g}" for k in (
-            "parent_ms", "ms_unpruned", "ms_cluster1", "cluster",
-            "kept_over_listed", "walked_over_listed") if k in r)
+        extra = "".join(f" {k}={r[k]:.6g}" for k in EXTRA_KEYS[1:]
+                        if k in r)
         say(f"main-path {name}: rows={cand.shape[0]} width={cand.shape[1]} "
             f"sb_mode={kw.get('sb_mode', name == 'stream_wvt')} "
             f"max_err={r['err']:.6g} kernel_ms={r['ms']:.6g} "
@@ -776,8 +890,8 @@ def main():
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-csrc", default=None, help="csrc directory of "
-                    "another tree: time its solve_density and "
-                    "wvt_displacement kernels beside this tree's")
+                    "another tree: time its fused_wvt and stream_curl "
+                    "kernels beside this tree's")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -803,7 +917,10 @@ def main():
     for name in LIBS:
         cuda_build.load(name)
         for line in cuda_build.build_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            # the mangled name tells the instantiations apart (<kind,
+            # flag>: ILi0E wc6, ILi1E m4; Lb1E set)
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 say(f"  nvcc {name}: {line.strip()}")
 
     check_kernels_on_cusp(torch, sp, cp, torch.device("cuda"))
@@ -823,7 +940,7 @@ def main():
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()
         parent = ParentKernels(sp, opts.parent_csrc)
-        say(f"build of the parent's solve_density and wvt_displacement "
+        say(f"build of the parent's fused_wvt and stream_curl "
             f"({opts.parent_csrc}): {time.perf_counter() - t0:.3f} s")
     res = time_on_main_path_inputs(torch, sp, cp, recorded, parent)
     # no single PyTorch call computes a per-lane h solve or an SPH pair
@@ -836,11 +953,9 @@ def main():
          "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None}
         for name, lib, rep in KERNELS]}
-    # what a check measured besides: stream_wvt without hoisting, a kernel
-    # without pruning and hoisting, on one CTA a row, the parent's kernel
+    # what a check measured besides (EXTRA_KEYS)
     for k in record["kernels"]:
-        for key in ("ms_unhoisted", "ms_unpruned", "ms_cluster1", "cluster",
-                    "kept_over_listed", "walked_over_listed", "parent_ms"):
+        for key in EXTRA_KEYS:
             if key in res[k["name"]]:
                 k[key] = res[k["name"]][key]
     for k in record["kernels"]:

@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU: each hand-written CUDA kernel against
 its plain PyTorch version on the same inputs, with the tolerances of the
-CPU tests, and the CLI main path on ``device=cuda`` at a small size.
+CPU tests, the kernels' options against each other to the bit, and the
+CLI main path on ``device=cuda`` at a small size.
 
 The file imports no JAX, so it runs on a machine without it.
 tests/conftest.py configures JAX, hence ``--noconftest``:
@@ -349,6 +350,228 @@ def test_empty_rows(dev, sb_mode, cluster):
     _density_close(got, ref, c["valid"], c["desnngb"])
     d = cp.wvt_displacement(*dargs, **kw, cluster=cluster)
     assert bool((d[1] == 0).all()) and bool((d[0] != 0).any())
+
+
+def _fused_args(c):
+    return (c["pos_t"], c["hm_blocks"], c["cand"], c["cnt"], c["pos_t"],
+            c["h0"], c["cap"], c["hm"], 1.0, cusp.BOX)
+
+
+def _fused_raw(args, kw, **debug):
+    """The fused_wvt kernel through the wrapper's launch function, with
+    the C entry point's debug bits."""
+    full = dict(dict(n_sweeps=cp.FUSED_SWEEPS, do_disp=True, gdist=None,
+                     dkeep=None, prune=True, hoist=True, stats=None,
+                     packed=None), **kw)
+    return cp._fused_wvt_cuda(*args, **full, **debug)
+
+
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+@pytest.mark.parametrize("sb_mode", [False, True])
+@pytest.mark.parametrize("do_disp", [True, False])
+def test_fused_options_are_bit_identical(dev, kernel, sb_mode, do_disp):
+    """fused_wvt with and without pruning and the dropped wrap, with and
+    without the frozen-lane skip and the warp tiles: the same bits, on a
+    cusp whose outskirts lie across the edge; a second run repeats them;
+    the blocks the kernel keeps are the plain oracle's, row by row, and
+    so are the density tiles of a single sweep at h = cap."""
+    c = cusp.class_inputs(kernel, N, sb_mode, device=dev, centre=100.0)
+    S = c["cand"].shape[0]
+    args = _fused_args(c)
+    kw = dict(kernel=kernel, desnngb=c["desnngb"], sb_mode=sb_mode,
+              do_disp=do_disp)
+    st, su, s1 = (torch.zeros((S, 5), dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    got = cp.fused_wvt(*args, **kw, stats=st)
+    for off in (dict(prune=False, stats=su), dict(hoist=False),
+                dict(prune=False, hoist=False), dict()):
+        for a, b in zip(got, cp.fused_wvt(*args, **kw, **off)):
+            assert torch.equal(a, b)
+    base = _fused_raw(args, kw)
+    assert torch.equal(base[..., 1], got[1])
+    assert torch.equal(base[..., 5:8], got[5])
+    if not do_disp:
+        assert bool((got[5] == 0).all())
+    for debug in (1, 2, 3):
+        assert torch.equal(base, _fused_raw(args, kw, debug=debug)), debug
+    dens_t, disp_t, ok = cp.fused_keep(
+        c["pos_t"], c["hm_blocks"], c["cand"], c["cnt"], c["pos_t"],
+        c["cap"], c["hm"], cusp.BOX, sb_mode=sb_mode, do_disp=do_disp,
+        tiles=True)
+    dens, disp = dens_t.any(dim=2), disp_t.any(dim=2)
+    # one sweep at h = cap walks the tiles the oracle keeps at the caps
+    cp.fused_wvt(*args[:5], c["cap"], *args[6:], **kw, n_sweeps=1, stats=s1)
+    torch.cuda.synchronize()
+    assert torch.equal(s1[:, 3].long(), dens.sum(dim=1))
+    assert torch.equal(s1[:, 4].long(), dens_t.sum(dim=(1, 2)))
+    assert int(s1[:, 4].sum()) < 16 * int(s1[:, 3].sum())
+    assert torch.equal(st[:, 1].long(), (dens | disp).sum(dim=1))
+    assert torch.equal(st[:, 2].long(), ok.sum(dim=1))
+    assert torch.equal(su[:, 1], su[:, 2]) and torch.equal(su[:, 2], st[:, 2])
+    assert torch.equal(su[:, 0], st[:, 0])
+    assert bool((st[:, 0] >= 1).all())
+    assert bool((st[:, 0] <= cp.FUSED_SWEEPS).all())
+    assert int(st[:, 1].sum()) < int(st[:, 2].sum())
+    # each sweep walks the density blocks within its own ranges
+    assert torch.equal(su[:, 3], su[:, 0] * su[:, 2])
+    assert bool((st[:, 3].long() <= st[:, 0] * dens.sum(dim=1)).all())
+    assert 0 < int(st[:, 3].sum()) < int(su[:, 3].sum())
+    assert torch.equal(su[:, 4], 16 * su[:, 3])
+    assert bool((st[:, 4] >= st[:, 3]).all())
+    assert bool((st[:, 4].long() <= st[:, 0] * dens_t.sum(dim=(1, 2))).all())
+
+
+@pytest.mark.parametrize("sb_mode", [False, True])
+def test_fused_and_curl_short_and_holed_rows(dev, sb_mode):
+    """Rows with cnt 0 return zeros, entries at or beyond cnt and -1
+    entries inside the list take part in no pair: fused_wvt and
+    stream_curl against their plain versions on such lists."""
+    c = cusp.class_inputs("wc6", N, sb_mode, device=dev)
+    S, M = c["cand"].shape
+    cand = c["cand"].clone()
+    cand[:, 1::3] = -1
+    cnt = torch.clamp(c["cnt"] - 1, min=1).to(torch.int32)
+    cnt[0] = 0
+    cnt[1] = -2
+    cnt[2] = M + 3
+    args = list(_fused_args(c))
+    args[2], args[3] = cand, cnt
+    kw = dict(kernel="wc6", desnngb=c["desnngb"], sb_mode=sb_mode)
+    st = torch.zeros((S, 5), dtype=torch.int32, device=dev)
+    got = cp.fused_wvt(*args, **kw, stats=st)
+    ref = cp._fused_wvt_reference(*args, n_sweeps=cp.FUSED_SWEEPS,
+                                  do_disp=True, gdist=None, dkeep=None, **kw)
+    torch.cuda.synchronize()
+    for x in got:
+        assert bool((x[:2] == 0).all())
+    assert bool((st[:2] == 0).all()) and int(st[2, 2]) > 0
+    dens, disp, ok = cp.fused_keep(c["pos_t"], c["hm_blocks"], cand, cnt,
+                                   c["pos_t"], c["cap"], c["hm"], cusp.BOX,
+                                   sb_mode=sb_mode)
+    assert torch.equal(st[:, 2].long(), ok.sum(dim=1))
+    assert torch.equal(st[:, 1].long(), (dens | disp).sum(dim=1))
+    # thinned lists leave many lanes short of neighbours: compare where
+    # both solved
+    v = c["valid"]
+    both = v & got[4] & (ref[..., 4] > 0.5)
+    assert int(both.sum()) > 0
+    near = torch.isclose(got[1][both], ref[..., 1][both], rtol=2e-3, atol=0)
+    assert float(near.float().mean()) > 0.98
+    _disp_close(got[5], ref[..., 5:8], v)
+    cargs, ckw, valid = cusp.curl_inputs("wc6", N, device=dev,
+                                         sb_mode=sb_mode)
+    cargs = (cargs[0], cand, cnt) + cargs[3:]
+    sc = torch.zeros((S, 5), dtype=torch.int32, device=dev)
+    b = sp.stream_curl(*cargs, **ckw, stats=sc)
+    a = sp._stream_curl_reference(*cargs, **ckw)
+    torch.cuda.synchronize()
+    assert bool((b[:2] == 0).all()) and bool((sc[:2, 1:] == 0).all())
+    kept, ok = sp.curl_keep(cargs[0], cand, cnt, cargs[3], cargs[4],
+                            cusp.BOX, sb_mode=sb_mode)
+    assert torch.equal(sc[:, 1].long(), kept.sum(dim=1))
+    assert torch.equal(sc[:, 2].long(), ok.sum(dim=1))
+    torch.testing.assert_close(b[valid], a[valid], rtol=5e-4,
+                               atol=2e-5 * float(a[valid].abs().max()))
+
+
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+@pytest.mark.parametrize("sb_mode", [False, True])
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_stream_curl_pruning_is_bit_identical(dev, kernel, sb_mode, cluster):
+    """Pruned and unpruned, wrapped and unwrapped runs of stream_curl agree
+    to the bit at a given cluster size (every fifth row forced to wrap by
+    an hsml of half the box, beside rows that need no wrap); the blocks
+    the kernel keeps and the warp tiles it walks are the plain oracle's,
+    row by row."""
+    cargs, kw, _ = cusp.curl_inputs(kernel, N, device=dev, sb_mode=sb_mode)
+    cargs = list(cargs)
+    hsml = cargs[4].clone()
+    hsml[::5] = 0.5 * cusp.BOX
+    cargs[4] = hsml
+    S = cargs[1].shape[0]
+    flag = sp.interior_rows(cargs[3], hsml.amax(dim=1), cusp.BOX)
+    assert not bool(flag[::5].any()) and int(flag.sum()) > 0
+    st, su = (torch.zeros((S, 5), dtype=torch.int32, device=dev)
+              for _ in range(2))
+    got = sp.stream_curl(*cargs, **kw, cluster=cluster, stats=st)
+    for off in (dict(prune=False, stats=su), dict(hoist=False),
+                dict(prune=False, hoist=False), dict()):
+        assert torch.equal(got, sp.stream_curl(*cargs, **kw, cluster=cluster,
+                                               **off))
+    tiles, ok = sp.curl_keep(cargs[0], cargs[1], cargs[2], cargs[3], hsml,
+                             cusp.BOX, sb_mode=sb_mode, tiles=True)
+    kept = tiles.any(dim=2)
+    torch.cuda.synchronize()
+    assert torch.equal(st[:, 4].long(), tiles.sum(dim=(1, 2)))
+    assert torch.equal(su[:, 4], 16 * su[:, 1])
+    assert int(st[:, 4].sum()) < 16 * int(st[:, 1].sum())
+    assert torch.equal(st[:, 1].long(), kept.sum(dim=1))
+    assert torch.equal(st[:, 2].long(), ok.sum(dim=1))
+    assert torch.equal(st[:, 3], st[:, 1]) and bool((st[:, 0] == 1).all())
+    assert torch.equal(su[:, 1], su[:, 2]) and torch.equal(su[:, 2], st[:, 2])
+    assert int(st[:, 1].sum()) < int(st[:, 2].sum())
+
+
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+@pytest.mark.parametrize("sb_mode", [False, True])
+@pytest.mark.parametrize("centre", [cusp.BOX / 2, 0.0])
+def test_stream_curl_cluster_sizes_agree(dev, kernel, sb_mode, centre):
+    """A row on one CTA and split over clusters of 2, 4 and 8 CTAs: every
+    size matches the plain version (the cusp in the box centre and across
+    the periodic edge), and a second run repeats the bits."""
+    cargs, kw, valid = cusp.curl_inputs(kernel, N, device=dev,
+                                        sb_mode=sb_mode)
+    if centre != cusp.BOX / 2:
+        # the same potential and lists on the cloud shifted rigidly
+        shift = torch.tensor(centre - cusp.BOX / 2, device=dev)
+        src8 = cargs[0].clone()
+        src8[:, :3] = (src8[:, :3] + shift) % cusp.BOX
+        cargs = (src8,) + cargs[1:3] + ((cargs[3] + shift) % cusp.BOX,) \
+            + cargs[4:]
+    ref = sp._stream_curl_reference(*cargs, **kw)
+    scale = float(ref[valid].abs().max())
+    assert scale > 0
+    for cluster in (1, 2, 4, 8):
+        got = sp.stream_curl(*cargs, **kw, cluster=cluster)
+        assert torch.equal(got, sp.stream_curl(*cargs, **kw,
+                                               cluster=cluster))
+        torch.testing.assert_close(got[valid], ref[valid], rtol=5e-4,
+                                   atol=2e-5 * scale)
+
+
+def test_fused_and_curl_wrappers_raise(dev):
+    """A list longer than the kernels' shared-memory lists hold raises, as
+    does a cluster size the card does not take; nothing falls back to the
+    plain version on a CUDA tensor."""
+    c = cusp.class_inputs("m4", 3000, False, device=dev)
+    S = c["cand"].shape[0]
+    args = _fused_args(c)
+    cargs, kw, _ = cusp.curl_inputs("m4", 3000, device=dev, sb_mode=False)
+    before = (cp.fused_wvt.launches, sp.stream_curl.launches)
+    wide = torch.full((S, cp.MAX_SHARE + 1), -1, dtype=torch.int32,
+                      device=dev)
+    wide[:, :c["cand"].shape[1]] = c["cand"]
+    with pytest.raises(ValueError, match="exceeds"):
+        cp.fused_wvt(*args[:2], wide, *args[3:], kernel="m4")
+    wider = torch.full((S, cp.MAX_CLUSTER * cp.MAX_SHARE + 1), -1,
+                       dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        sp.stream_curl(cargs[0], wider, *cargs[2:], **kw)
+    with pytest.raises(ValueError, match="cluster must be"):
+        sp.stream_curl(*cargs, **kw, cluster=16)
+    with pytest.raises(ValueError, match="n_sweeps"):
+        cp.fused_wvt(*args, kernel="m4", n_sweeps=0)
+    assert (cp.fused_wvt.launches, sp.stream_curl.launches) == before
+    # a row of the widest list one CTA holds still runs
+    most = torch.full((S, cp.MAX_SHARE), -1, dtype=torch.int32, device=dev)
+    most[:, -c["cand"].shape[1]:] = c["cand"]
+    cnt = torch.full_like(c["cnt"], cp.MAX_SHARE)
+    got = cp.fused_wvt(*args[:2], most, cnt, *args[4:], kernel="m4",
+                       desnngb=c["desnngb"])
+    ref = cp.fused_wvt(*args, kernel="m4", desnngb=c["desnngb"])
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 def test_class_wrappers_raise_and_do_not_truncate(dev):

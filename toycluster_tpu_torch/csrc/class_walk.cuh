@@ -1,6 +1,6 @@
-// The list walk shared by the count-class kernels solve_density.cu and
-// wvt_displacement.cu: one receiver block (a row) per CTA of 512 threads,
-// or per thread-block cluster of up to 8 such CTAs.
+// The list walk shared by solve_density.cu, wvt_displacement.cu,
+// fused_wvt.cu and stream_curl.cu: one receiver block (a row) per CTA of
+// 512 threads, or per thread-block cluster of up to 8 such CTAs.
 //
 // 1. Member test, once per call.  A row lists block ids, or superblock ids
 //    whose members below nb are its source blocks; -1 entries stand
@@ -16,11 +16,18 @@
 //    block ids, in list order, into a list in shared memory.  Block ids
 //    are stored whole (32 bits), so no list position type bounds a row;
 //    the launcher refuses a share that does not fit the shared memory.
-//    solve_density.cu runs the same test again before each sweep, over
-//    the kept blocks, against the sweep's own ranges (`compact`).
+//    solve_density.cu and fused_wvt.cu run the same test again before
+//    each sweep, over the kept blocks, against the sweep's own ranges
+//    (`compact`).  fused_wvt.cu and stream_curl.cu keep more of the test
+//    than its verdict (`keep_tiles`): a warp serves 32 receiver lanes (two
+//    receiver chunks) and 32 sources of a block (two source chunks), a
+//    tile, and the 8 x 8 gaps say for each of the 16 warps whether any of
+//    its 2 x 2 chunk pairs is in range; a warp whose bit is clear skips
+//    the block's pairs, which would add exact zeros.
 // 2. Walk.  Source blocks are 128 (x, y, z, w) records of 16 bytes (2 KB,
-//    contiguous), streamed through a ring of STAGES slots with cp.async so
-//    that STAGES - 1 copies are in flight while a block's pairs run.
+//    contiguous; stream_curl.cu: two records a source, 4 KB), streamed
+//    through a ring of STAGES slots with cp.async so that STAGES - 1 copies
+//    are in flight while a block's pairs run.
 //    SPLIT = 4 threads serve each receiver lane, each taking 32 sources of
 //    every block; a pair reads its source with one broadcast 16-byte load.
 // 3. Sums are two-level (per source block, then across blocks), then the
@@ -128,12 +135,47 @@ __device__ __forceinline__ bool keep_block(const Row& r, int b,
   return keep;
 }
 
-// Compact the block ids fetch(0 .. n) that are valid (>= 0) and pass
-// test(b) into `out`, in order.  s_wc holds 2 * NWARP * 2 ints.  Every
-// thread runs the same trip count, so ballots and barriers are uniform.
-template <class Fetch, class Test>
+// The same test, kept per warp tile: bit w of the low half (DENS) or of the
+// high half (DISP) is set if a chunk pair of warp w's tile -- receiver
+// chunks 2 (w % 4) and 2 (w % 4) + 1 against source chunks 2 (w / 4) and
+// 2 (w / 4) + 1, the lanes and sources of thread w * 32 .. w * 32 + 31 --
+// is in range.  A half is nonzero where keep_block holds for its consumer.
+template <bool DENS, bool DISP>
+__device__ __forceinline__ unsigned keep_tiles(const Row& r, int b,
+                                               const float* s_rt,
+                                               const float* s_td2) {
+  static_assert(NWARP == 16 && NCHUNK == 8 && SPLIT == 4,
+                "16 tiles of 2 x 2 chunk pairs");
+  const float4* cj4 = reinterpret_cast<const float4*>(r.ctab) + (size_t)b * 16;
+  unsigned md = 0u, mx = 0u;
+  for (int mc = 0; mc < NCHUNK; ++mc) {
+    const float4 c0 = __ldg(cj4 + 2 * mc);
+    const float4 c1 = __ldg(cj4 + 2 * mc + 1);
+    const float cj[7] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z};
+#pragma unroll
+    for (int rc = 0; rc < NCHUNK; ++rc) {
+      const float* ri = s_rt + rc * 8;
+      const float g2 = hull_gap2(ri, cj, r.box, r.inv_box);
+      const unsigned bit = 1u << ((mc >> 1) * 4 + (rc >> 1));
+      if (DENS && g2 <= s_td2[rc]) md |= bit;
+      if (DISP) {
+        const float tx = __fadd_rn(
+            __fmul_rn(__fmul_rn(0.5f, __fadd_rn(ri[7], cj[6])), r.box),
+            r.infl);
+        if (g2 <= __fmul_rn(tx, tx)) mx |= bit;
+      }
+    }
+  }
+  return md | (mx << 16);
+}
+
+// Compact the entries k of 0 .. n whose fetch(k) is valid (>= 0) and whose
+// test(fetch(k), k, v) holds: the value v it leaves goes into `out`, in
+// order.  s_wc holds 2 * NWARP * 2 ints.  Every thread runs the same trip
+// count, so ballots and barriers are uniform.
+template <class T, class Fetch, class Test>
 __device__ __forceinline__ void compact(int n, Fetch fetch, Test test,
-                                        int* s_wc, int* out, int& n_out,
+                                        int* s_wc, T* out, int& n_out,
                                         int& n_valid) {
   const int tid = threadIdx.x;
   const int w = tid >> 5;
@@ -143,7 +185,8 @@ __device__ __forceinline__ void compact(int n, Fetch fetch, Test test,
     const int k = base + tid;
     const int b = k < n ? fetch(k) : -1;
     const bool valid = b >= 0;
-    const bool keep = valid && test(b);
+    T v;
+    const bool keep = valid && test(b, k, v);
     const unsigned bk = __ballot_sync(0xffffffffu, keep);
     const unsigned bv = __ballot_sync(0xffffffffu, valid);
     // warp totals, double-buffered by pass parity: one barrier a pass
@@ -154,14 +197,30 @@ __device__ __forceinline__ void compact(int n, Fetch fetch, Test test,
     }
     __syncthreads();
     int off = n_out;
-    for (int v = 0; v < NWARP; ++v) {
-      if (v < w) off += wc[v * 2 + 0];
-      n_out += wc[v * 2 + 0];
-      n_valid += wc[v * 2 + 1];
+    for (int u = 0; u < NWARP; ++u) {
+      if (u < w) off += wc[u * 2 + 0];
+      n_out += wc[u * 2 + 0];
+      n_valid += wc[u * 2 + 1];
     }
-    if (keep) out[off + __popc(bk & lt)] = b;
+    if (keep) out[off + __popc(bk & lt)] = v;
   }
   __syncthreads();
+}
+
+// The source block of entry k of this CTA's share of the row's list, or -1
+// (an empty entry, a member past nb).
+__device__ __forceinline__ int entry_block(const Row& r, int k) {
+  const int e = k * r.csize + r.rank;
+  const int id = __ldg(r.list + (r.sb ? e >> 3 : e));
+  const int b = r.sb ? id * SUPER + (e & 7) : id;
+  return id >= 0 && b < r.nb ? b : -1;
+}
+
+// Entries of this CTA's share of a row of n_entries entries.
+__device__ __forceinline__ int share_entries(const Row& r) {
+  return r.n_entries > r.rank
+             ? (r.n_entries - r.rank + r.csize - 1) / r.csize
+             : 0;
 }
 
 // Test this CTA's share of the row's entries and write the kept block ids,
@@ -170,33 +229,43 @@ template <bool DISP>
 __device__ void build_list(const Row& r, const float* s_rt,
                            const float* s_td2, int* s_wc, int* kept,
                            int& n_kept, int& n_listed) {
-  const int n_share =
-      r.n_entries > r.rank ? (r.n_entries - r.rank + r.csize - 1) / r.csize : 0;
   compact(
-      n_share,
-      [&](int k) {
-        const int e = k * r.csize + r.rank;
-        const int id = __ldg(r.list + (r.sb ? e >> 3 : e));
-        const int b = r.sb ? id * SUPER + (e & 7) : id;
-        return id >= 0 && b < r.nb ? b : -1;
-      },
-      [&](int b) {
+      share_entries(r), [&](int k) { return entry_block(r, k); },
+      [&](int b, int, int& v) {
+        v = b;
         return !r.prune || keep_block<DISP>(r, b, s_rt, s_td2);
       },
       s_wc, kept, n_kept, n_listed);
 }
 
+// As build_list at the density range, for a kernel whose warps skip their
+// tiles: an entry of `kept` is (block id, keep_tiles' density bits; all
+// set without the test).
+__device__ void build_tile_list(const Row& r, const float* s_rt,
+                                const float* s_td2, int* s_wc, int2* kept,
+                                int& n_kept, int& n_listed) {
+  compact(
+      share_entries(r), [&](int k) { return entry_block(r, k); },
+      [&](int b, int, int2& v) {
+        const unsigned m =
+            r.prune ? keep_tiles<true, false>(r, b, s_rt, s_td2) : 0xffffu;
+        v = make_int2(b, (int)m);
+        return m != 0u;
+      },
+      s_wc, kept, n_kept, n_listed);
+}
+
 // Stream the blocks kept[0 .. n) through the ring and call body(sm) on
-// each, sm the block's 128 float4 records in shared memory (all threads
-// take part; threads below 128 each copy one record).
-template <class Body>
-__device__ __forceinline__ void walk(const float* src, const int* kept, int n,
+// each, sm the block's RECS x 128 float4 records in shared memory (all
+// threads take part; the first RECS x 128 each copy one record).
+template <int RECS = 1, class Ids, class Body>
+__device__ __forceinline__ void walk(const float* src, Ids kept, int n,
                                      float* ring, Body body) {
   const int t = threadIdx.x;
   auto start_copy = [&](int k) {
-    if (t < BLOCK)
-      cp_async16(ring + (k % STAGES) * SRC_FLOATS + 4 * t,
-                 src + (size_t)kept[k] * SRC_FLOATS + 4 * t);
+    if (t < RECS * BLOCK)
+      cp_async16(ring + (k % STAGES) * RECS * SRC_FLOATS + 4 * t,
+                 src + (size_t)kept[k] * RECS * SRC_FLOATS + 4 * t);
   };
 #pragma unroll
   for (int k = 0; k < STAGES - 1; ++k) {
@@ -210,7 +279,8 @@ __device__ __forceinline__ void walk(const float* src, const int* kept, int n,
     __syncthreads();
     if (k + STAGES - 1 < n) start_copy(k + STAGES - 1);
     cp_async_commit();
-    body(reinterpret_cast<const float4*>(ring + (k % STAGES) * SRC_FLOATS));
+    body(reinterpret_cast<const float4*>(ring +
+                                         (k % STAGES) * RECS * SRC_FLOATS));
   }
   // the ring is free for the next walk
   __syncthreads();
@@ -274,12 +344,14 @@ __device__ __forceinline__ void cluster_counts(const int* s_cnt, int csize,
   }
 }
 
-// Dynamic shared memory of a launch: the ring and `lists` lists of one
-// CTA's share of a row; 0 if the share exceeds MAX_SHARE.
-inline size_t smem_bytes(int n_entries, int cluster, int lists) {
+// Dynamic shared memory of a launch: the ring (blocks of `recs` records a
+// source) and `lists` lists of one CTA's share of a row; 0 if the share
+// exceeds MAX_SHARE.
+inline size_t smem_bytes(int n_entries, int cluster, int lists,
+                         int recs = 1) {
   const int share = (n_entries + cluster - 1) / cluster;
   if (share > MAX_SHARE) return 0;
-  return (size_t)STAGES * SRC_FLOATS * sizeof(float) +
+  return (size_t)STAGES * recs * SRC_FLOATS * sizeof(float) +
          (size_t)lists * (share > 0 ? share : 1) * sizeof(int);
 }
 

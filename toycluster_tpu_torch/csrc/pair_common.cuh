@@ -1,12 +1,8 @@
 // Shared pieces of the pair kernels: the constants and the SPH density
 // sums of one pair (all of them); for the count-class kernels
-// (solve_density.cu, wvt_displacement.cu, fused_wvt.cu) also the
-// Newton/bisection h update, the record of a solved lane, the walk over a
-// receiver's list entries, and a CTA-wide max.
-//
-// Every kernel runs one CTA of BLOCK threads per receiver block, one
-// thread per receiver lane; list entries are read by all threads alike,
-// so control flow around the barriers is uniform.
+// (solve_density.cu, wvt_displacement.cu, fused_wvt.cu) also the WVT
+// weight, the Newton/bisection h update and the record of a solved lane.
+// A receiver block has BLOCK lanes; class_walk.cuh holds the list walk.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -69,36 +65,6 @@ __device__ __forceinline__ void norm_sums(float h, float raw_w, float raw_rdw,
   } else {
     sw = raw_w;
     srdw = raw_rdw;
-  }
-}
-
-// Density sums of one receiver lane against one staged source block (rows
-// x, y, z of s_src, validity in row `vrow`), at h; partial sums of the
-// block are added to the running sums by the caller (two-level sums).
-template <int KIND>
-__device__ __forceinline__ void dens_block(const float* s_src, int vrow,
-                                           float x0, float x1, float x2,
-                                           float h, float box, float& bw,
-                                           float& brdw) {
-  const float inv_box = 1.0f / box;
-  const float inv_h2 = 1.0f / (h * h);
-  bw = 0.0f;
-  brdw = 0.0f;
-  for (int j = 0; j < BLOCK; ++j) {
-    if (!(s_src[vrow * BLOCK + j] > 0.0f)) continue;
-    float dx = x0 - s_src[j];
-    float dy = x1 - s_src[BLOCK + j];
-    float dz = x2 - s_src[2 * BLOCK + j];
-    dx -= box * rintf(dx * inv_box);
-    dy -= box * rintf(dy * inv_box);
-    dz -= box * rintf(dz * inv_box);
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    if (KIND == WC6) {
-      const float q = r2 * inv_h2;
-      if (q < 1.0f) dens_pair<KIND>(sqrtf(q), h, bw, brdw);
-    } else {
-      dens_pair<KIND>(sqrtf(r2), h, bw, brdw);
-    }
   }
 }
 
@@ -169,39 +135,6 @@ __device__ __forceinline__ void record(float* o, float h, float aw, float ardw,
   o[2] = 1.0f / (1.0f + h / (3.0f * fmaxf(rho, 1e-30f)) * drho);
   o[3] = wk;
   o[4] = (done > 0.5f || now_done) ? 1.0f : 0.0f;
-}
-
-// The source blocks of list entry `id`: [first, first + n) -- one block in
-// block mode, the members below nb of superblock `id` in superblock mode;
-// none for id < 0.
-__device__ __forceinline__ int entry_blocks(int id, bool sb, int nb,
-                                            int& first) {
-  if (id < 0) return 0;
-  first = sb ? id * SUPER : id;
-  return sb ? min(SUPER, nb - first) : 1;
-}
-
-// Stage `rows` rows of 128 floats of source block b into shared memory:
-// row k from base[k] + b * stride[k] (all threads take part).
-__device__ __forceinline__ void stage(float* s_src, int rows,
-                                      const float* const* base,
-                                      const int* stride, int b) {
-  const int lane = threadIdx.x;
-  __syncthreads();
-  for (int k = 0; k < rows; ++k)
-    s_src[k * BLOCK + lane] = base[k][(size_t)b * stride[k] + lane];
-  __syncthreads();
-}
-
-// Max of v over the CTA (all threads take part).
-__device__ __forceinline__ float cta_max(float v, float* s_red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = s_red[0];
-  for (int w = 1; w < BLOCK / 32; ++w) m = fmaxf(m, s_red[w]);
-  return m;
 }
 
 }  // namespace pair_common

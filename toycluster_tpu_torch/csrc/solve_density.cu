@@ -168,8 +168,11 @@ __global__ void __launch_bounds__(NT, 2) solve_density_kernel(Args a) {
       int n_valid;
       compact(
           n_kept, [&](int k) { return kept[k]; },
-          [&](int b) { return keep_block<false>(r, b, s_rt, s_td2); }, s_wc,
-          walked, n, n_valid);
+          [&](int b, int, int& v) {
+            v = b;
+            return keep_block<false>(r, b, s_rt, s_td2);
+          },
+          s_wc, walked, n, n_valid);
     }
     n_walked += n;
     const bool skip = !last && __all_sync(0xffffffffu, st.done > 0.5f);

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import blocks as blk
-from ..ops.stream_pair import stream_curl
+from ..ops.stream_pair import pack_curl_sources, stream_curl
 from ..particles import HaloArrays, Particles, gas_density
 from ..scene import Scene
 from . import positions as pos_mod
@@ -64,7 +64,9 @@ def normalise_field(scene: Scene, ha: HaloArrays, bfld, pos_gas):
 
 def _curl_inputs(scene, parts, bi):
     """The curl's (nb, 8, 128) sources, receivers in block layout and
-    per-lane rows, in the sorted order of ``bi``."""
+    per-lane rows, in the sorted order of ``bi``, and on the card the
+    kernel's source records and chunk table, packed once for every call
+    (the CPU path reads none)."""
     n_gas = parts.n_gas
     nb = bi.n_blocks
 
@@ -82,7 +84,9 @@ def _curl_inputs(scene, parts, bi):
                       torch.zeros_like(valid_b)], dim=1).contiguous()
     wfac = torch.where(bi.valid, -float(scene.mpart_gas) * vf_s / rho_s,
                        torch.zeros_like(rho_s)).reshape(nb, blk.BLOCK)
-    return src8, pos_t, h_s.reshape(nb, blk.BLOCK), wfac, ap_t
+    packed = (pack_curl_sources(src8, float(scene.boxsize))
+              if src8.is_cuda else None)
+    return src8, pos_t, h_s.reshape(nb, blk.BLOCK), wfac, ap_t, packed
 
 
 def sph_curl(scene, parts, state: sph_mod.NeighbourState):
@@ -92,7 +96,7 @@ def sph_curl(scene, parts, state: sph_mod.NeighbourState):
     in superblock mode over the far-tail rows (the count-class engine)."""
     n_gas = parts.n_gas
     bi = state.index
-    src8, pos_t, h_b, wfac, ap_t = _curl_inputs(scene, parts, bi)
+    src8, pos_t, h_b, wfac, ap_t, packed = _curl_inputs(scene, parts, bi)
 
     def curl(ids, rows, cnt, sb_mode):
         idc = slice(None) if ids is None else ids.long()
@@ -100,7 +104,7 @@ def sph_curl(scene, parts, state: sph_mod.NeighbourState):
                             wfac[idc], ap_t[idc], float(scene.mpart_gas),
                             float(scene.boxsize),
                             kernel=scene.config.sph_kernel,
-                            sb_mode=sb_mode),)
+                            sb_mode=sb_mode, packed=packed),)
 
     if state.sb:
         (out,) = curl(None, state.cand.idx, state.cand.count, True)

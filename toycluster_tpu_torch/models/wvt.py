@@ -31,7 +31,7 @@ import torch
 
 from .. import constants as const
 from ..ops import blocks as blk
-from ..ops.class_pair import (fused_bounds, fused_wvt, pack_sources,
+from ..ops.class_pair import (fused_wvt, pack_fused_sources, pack_sources,
                               solve_density, wvt_displacement)
 from ..ops.stream_pair import stream_wvt
 from ..particles import HaloArrays, Particles
@@ -142,20 +142,6 @@ class _Loop:
         h_b3 = hm_s.reshape(nb, 1, blk.BLOCK)
         h0_b = h0_s.reshape(nb, blk.BLOCK)
         cap_b = cap_s.reshape(nb, blk.BLOCK)
-        # the fused kernel's exact-zero skips: block boxes at the
-        # current positions
-        bb_lo, bb_hi = sph_mod.block_boxes(pos_pad, self.boxsize)
-        bhm = hm_blocks[:, 0].amax(dim=1)
-
-        def fused(ids, rows, cnt):
-            idc = ids.long()
-            gdist, dkeep = fused_bounds(bb_lo, bb_hi, ids, rows,
-                                        hm_b[idc].amax(dim=1), bhm,
-                                        self.boxsize)
-            return fused_wvt(pos_t, hm_blocks, rows, cnt, pos_t[idc],
-                             h0_b[idc], cap_b[idc], hm_b[idc], self.mpart,
-                             self.boxsize, gdist=gdist, dkeep=dkeep, **kw)
-
         packs = {}
 
         def packed(h_blocks):
@@ -167,6 +153,22 @@ class _Loop:
                 packs[h_blocks is None] = pack_sources(
                     pos_t, valid_t, h_blocks, self.boxsize)
             return packs[h_blocks is None]
+
+        def packed_fused():
+            # hm_blocks is h_b3 on the valid lanes and 0 elsewhere: the
+            # displacement's chunk table is the fused kernel's too
+            if not pos_t.is_cuda:
+                return None
+            if "fused" not in packs:
+                packs["fused"] = pack_fused_sources(
+                    pos_t, hm_blocks, self.boxsize, ctab=packed(h_b3).ctab)
+            return packs["fused"]
+
+        def fused(ids, rows, cnt):
+            idc = ids.long()
+            return fused_wvt(pos_t, hm_blocks, rows, cnt, pos_t[idc],
+                             h0_b[idc], cap_b[idc], hm_b[idc], self.mpart,
+                             self.boxsize, packed=packed_fused(), **kw)
 
         def two_pass(ids, rows, sb_mode):
             idc = ids.long()

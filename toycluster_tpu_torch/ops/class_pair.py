@@ -25,48 +25,36 @@ CPU tensor runs the plain PyTorch version beside it, which keeps the TPU
 kernel's per-block sweep loop as a per-row mask.  Any other device
 raises.
 
-The ``solve_density`` and ``wvt_displacement`` kernels prune their listed
-blocks themselves with the chunk cross test of
-``stream_pair.member_keep`` (its plain oracles here: ``density_keep``,
-``displacement_keep``), drop the periodic wrap on the rows that
-``stream_pair.interior_rows`` flags, and split a row over a thread-block
-cluster when a call has too few rows to fill the card
-(``_cluster_size``).  Pruning and the dropped wrap change no bit of the
-outputs; the cluster size changes the order of the sums.
+The kernels prune their listed blocks themselves with the chunk cross
+test of ``stream_pair.member_keep`` (its plain oracles here:
+``density_keep``, ``displacement_keep``, ``fused_keep``) and drop the
+periodic wrap on the rows that ``stream_pair.interior_rows`` flags;
+``solve_density`` and ``wvt_displacement`` split a row over a
+thread-block cluster when a call has too few rows to fill the card
+(``stream_pair._cluster_size``); in ``fused_wvt`` a warp also skips the
+blocks whose tile of its 32 lanes and 32 sources the test drops
+(``stream_pair._warp_tiles``).  Pruning and the dropped wrap change no
+bit of the outputs; the cluster size changes the order of the sums.
 """
 
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import torch
 
 from .. import constants as const
 from .blocks import BLOCK, SUPER, _interval_dist2
 from .kernels import WC6_NORM, m4_flat
-from .stream_pair import (_INFL, _KIND, _PAIR_BUDGET, _check, _dens_sums,
-                          _keep_rows, _launch, _norm_sums, _pair_dx,
-                          _recv_tab, _rho_corr, _row_chunks, _update,
-                          build_chunk_tab, gather_sources, interior_rows,
-                          list_entries)
+from .stream_pair import (_INFL, _KIND, _PAIR_BUDGET, MAX_CLUSTER, MAX_SHARE,
+                          PackedSources, _check, _check_packed,
+                          _cluster_size, _dens_sums, _keep_rows, _launch,
+                          _norm_sums, _pair_dx, _recv_tab, _rho_corr,
+                          _row_chunks, _row_tables, _update, build_chunk_tab,
+                          gather_sources, list_entries, pair_range)
 
 # sweep budgets of the TPU wrappers (solve_density_pallas,
 # fused_wvt_pallas); the count-class engine chooses its own per call site
 SOLVE_SWEEPS = 8
 FUSED_SWEEPS = 16
-# the list walk of csrc/class_walk.cuh: CTAs a row may be split over (a
-# thread-block cluster), and the list entries one CTA's shared-memory
-# list holds
-MAX_CLUSTER = 8
-MAX_SHARE = 1 << 14
-# a call is split over clusters while it has fewer CTAs than this (132
-# SMs, two to four resident CTAs of 512 threads each) and every CTA's
-# share of the row keeps at least _MIN_SHARE entries.  Over the 36 calls
-# of the 1e6 reference run the rule came within 3% of the best size per
-# call (python -m toycluster_tpu_torch.cluster_sweep, PERF.md).
-_FILL_CTAS = 528
-_MIN_SHARE = 32
-
 
 def _check_lists(pos_blocks, cand, xi, src_rows, lane_rows):
     """Device, dtype, shape and contiguity checks; returns (dev, nb, S,
@@ -115,15 +103,6 @@ def _chunks(ok):
                        BLOCK * BLOCK), width
 
 
-class PackedSources(NamedTuple):
-    """The sources as the list-walk kernels read them: ``src`` (nb, 128,
-    4) records (x, y, z, w), ``ctab`` (nb, 64) their chunk table
-    (``stream_pair.build_chunk_tab``), ``w_max`` the largest w."""
-    src: torch.Tensor
-    ctab: torch.Tensor
-    w_max: torch.Tensor
-
-
 def pack_sources(pos_blocks, valid_blocks, h_blocks, boxsize):
     """``PackedSources`` of ``solve_density`` (``h_blocks`` None: w is the
     validity, a source takes part where w > 0) or of ``wvt_displacement``
@@ -139,48 +118,17 @@ def pack_sources(pos_blocks, valid_blocks, h_blocks, boxsize):
                          build_chunk_tab(pos_blocks, w0, boxsize), w0.amax())
 
 
-def _check_packed(packed, nb, dev):
-    _check("packed.src", packed.src, torch.float32, (nb, BLOCK, 4), dev)
-    _check("packed.ctab", packed.ctab, torch.float32, (nb, 64), dev)
-
-
-def _cluster_size(n_rows, n_entries, cluster):
-    """CTAs a row is split over: ``cluster`` if given, else doubled from 1
-    while the call has fewer than _FILL_CTAS CTAs and every share keeps
-    _MIN_SHARE entries, or until a share fits a CTA's list.  Raises if no
-    allowed size holds the list."""
-    if cluster is None:
-        cluster = 1
-        while cluster < MAX_CLUSTER and (
-                -(-n_entries // cluster) > MAX_SHARE
-                or (n_rows * cluster < _FILL_CTAS
-                    and n_entries >= 2 * cluster * _MIN_SHARE)):
-            cluster *= 2
-    if not 1 <= cluster <= MAX_CLUSTER:
-        raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, "
-                         f"not {cluster}")
-    if -(-n_entries // cluster) > MAX_SHARE:
-        raise ValueError(
-            f"a list of {n_entries} blocks over {cluster} CTAs exceeds the "
-            f"{MAX_SHARE} entries of a CTA's shared-memory list")
-    return cluster
-
-
-def _row_tables(cand, xi, cap, h_i, r_pair, boxsize, hoist):
-    """What the list-walk kernels read per row: the receiver chunks
-    (S, 8, 8) (largest cap in column 6 for the density, largest h_i in
-    column 7 for the displacement), the flag (S,) int32 of the rows that
-    skip the periodic wrap (``stream_pair.interior_rows`` at the row's
-    largest pair range ``r_pair``; zeros without ``hoist``), and the
-    rows ordered longest list first."""
-    lane = cap if cap is not None else h_i
-    rtab = _recv_tab(build_chunk_tab(xi, lane, boxsize), lane, h_i)
-    flag = interior_rows(xi, r_pair, boxsize).to(torch.int32)
-    if not hoist:
-        flag = torch.zeros_like(flag)
-    order = torch.argsort((cand >= 0).sum(dim=1), descending=True,
-                          stable=True).to(torch.int32)
-    return rtab.contiguous(), flag.contiguous(), order
+def pack_fused_sources(pos_blocks, hm_blocks, boxsize, ctab=None):
+    """``PackedSources`` of ``fused_wvt``: w = hm, the metric hsml in box
+    units, which is range and validity at once (a source takes part
+    where w > 0).  ``ctab`` takes the chunk table of
+    ``pack_sources(pos_blocks, valid_blocks, h_blocks, boxsize)`` where
+    hm is h on the valid lanes and 0 elsewhere: it is the same table."""
+    hm = hm_blocks[:, 0]
+    src = torch.cat([pos_blocks, hm_blocks], dim=1).transpose(1, 2)
+    if ctab is None:
+        ctab = build_chunk_tab(pos_blocks, hm, boxsize)
+    return PackedSources(src.contiguous(), ctab, hm.amax())
 
 
 def _list_keep(rtab, ctab, cand, boxsize, do_disp, sb_mode):
@@ -214,6 +162,29 @@ def displacement_keep(pos_blocks, valid_blocks, h_blocks, cand, xi, h_i,
     ctab = pack_sources(pos_blocks, valid_blocks, h_blocks, boxsize).ctab
     rtab = _recv_tab(build_chunk_tab(xi, h_i, boxsize), h_i, h_i)
     return _list_keep(rtab, ctab, cand, boxsize, True, sb_mode)
+
+
+def fused_keep(pos_blocks, hm_blocks, cand, cnt, xi, cap, hm_i, boxsize, *,
+               sb_mode=False, do_disp=True, gdist=None, dkeep=None,
+               tiles=False):
+    """The plain oracle of ``fused_wvt``'s member test: (density kept,
+    displacement kept, listed), each (S, E) bool, over the first
+    min(cnt, M) list entries: ``density_keep``'s test and, with
+    ``do_disp``, ``displacement_keep``'s (hm == 0 lanes take part in no
+    pair), each ANDed with the caller's bound where given.  With ``tiles``
+    the two keeps are (S, E, 16), the verdict per warp tile
+    (``stream_pair._warp_tiles``)."""
+    ctab = build_chunk_tab(pos_blocks, hm_blocks[:, 0], boxsize)
+    rtab = _recv_tab(build_chunk_tab(xi, cap, boxsize), cap,
+                     hm_i if do_disp else None)
+    dens, disp, ok = _keep_rows(rtab, ctab, cand, cnt, boxsize, do_disp,
+                                sb_mode, tiles)
+    if gdist is not None:
+        by_gdist = gdist <= cap.amax(dim=1)[:, None]
+        dens = dens & (by_gdist[..., None] if tiles else by_gdist)
+    if dkeep is not None:
+        disp = disp & (dkeep[..., None] if tiles else dkeep)
+    return dens, disp, ok
 
 
 def _fill_stats(stats, sweeps, keep):
@@ -460,7 +431,8 @@ def _wvt_displacement_reference(pos_blocks, valid_blocks, h_blocks, cand, xi,
 
 def fused_wvt(pos_blocks, hm_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
               boxsize, *, kernel="wc6", desnngb=295, n_sweeps=FUSED_SWEEPS,
-              sb_mode=False, do_disp=True, gdist=None, dkeep=None):
+              sb_mode=False, do_disp=True, gdist=None, dkeep=None,
+              prune=True, hoist=True, stats=None, packed=None):
     """The density solve and the WVT displacement of one count class in
     one pass.  Sources with hm == 0 take part in no pair; the first
     min(cnt, M) list entries are read.  Newton/bisection sweeps repeat
@@ -477,36 +449,98 @@ def fused_wvt(pos_blocks, hm_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
     range; such blocks are skipped in the displacement pass.  Both skip
     exact-zero contributions only, so the outputs do not change.  Rows
     with cnt <= 0 return zeros.  Returns (rho, hsml, var_hsml_fac,
-    wk_ngb, done, delta)."""
+    wk_ngb, done, delta).
+
+    The kernel walks only the listed blocks that ``fused_keep`` keeps (in
+    each sweep those of them within the sweep's own ranges, the current h
+    of the lanes it still solves; each warp only the blocks whose tile of
+    its 32 lanes and 32 sources the test keeps) and skips the periodic
+    wrap on interior rows; ``prune=False`` / ``hoist=False`` turn that
+    off, for the checks that neither changes a bit (the caller's bounds
+    apply either way).  ``stats``, an optional (S, 5) int32 output,
+    receives per row the sweeps, the blocks kept for either consumer, the
+    blocks listed, and the density blocks and the density warp tiles (16
+    a block) walked over all sweeps (the plain version evaluates every
+    listed pair all the same and reports the oracle's density blocks and
+    tiles x sweeps).  ``packed`` takes ``pack_fused_sources(pos_blocks,
+    hm_blocks, boxsize)``."""
     dev, nb, S, M = _check_lists(pos_blocks, cand, xi,
                                  dict(hm_blocks=hm_blocks),
                                  dict(h0=h0, cap=cap, hm_i=hm_i))
     _check("cnt", cnt, torch.int32, (S,), dev)
     _check_kernel(kernel)
+    if n_sweeps < 1:
+        raise ValueError("n_sweeps must be >= 1")
     mb = M * SUPER if sb_mode else M
     if gdist is not None:
         _check("gdist", gdist, torch.float32, (S, mb), dev)
     if dkeep is not None:
         _check("dkeep", dkeep, torch.bool, (S, mb), dev)
+    if stats is not None:
+        _check("stats", stats, torch.int32, (S, 5), dev)
     if dev.type == "cpu":
+        sweeps = None if stats is None else torch.zeros(
+            S, dtype=torch.int32)
         out = _fused_wvt_reference(
             pos_blocks, hm_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
             boxsize, kernel=kernel, desnngb=desnngb, n_sweeps=n_sweeps,
-            sb_mode=sb_mode, do_disp=do_disp, gdist=gdist, dkeep=dkeep)
+            sb_mode=sb_mode, do_disp=do_disp, gdist=gdist, dkeep=dkeep,
+            sweeps=sweeps)
+        if stats is not None:
+            dens, disp, ok = fused_keep(
+                pos_blocks, hm_blocks, cand, cnt, xi, cap, hm_i, boxsize,
+                sb_mode=sb_mode, do_disp=do_disp, gdist=gdist, dkeep=dkeep,
+                tiles=True)
+            stats[:, 0] = sweeps
+            stats[:, 1] = (dens | disp).any(dim=2).sum(dim=1)
+            stats[:, 2] = ok.sum(dim=1)
+            stats[:, 3] = sweeps * dens.any(dim=2).sum(dim=1)
+            stats[:, 4] = sweeps * dens.sum(dim=(1, 2))
     else:
-        out = torch.empty((S, BLOCK, 8), dtype=torch.float32, device=dev)
-        _launch("fused_wvt", [
-            pos_blocks, hm_blocks, cand, cnt, xi, h0, cap, hm_i, gdist,
-            None if dkeep is None else dkeep.to(torch.uint8), out, S, M,
-            nb, _KIND[kernel], bool(sb_mode), bool(do_disp), n_sweeps,
-            float(mpart), float(boxsize), float(desnngb),
-            float(_rho_corr(desnngb, mpart, kernel))])
-        fused_wvt.launches += 1
+        out = _fused_wvt_cuda(
+            pos_blocks, hm_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
+            boxsize, kernel=kernel, desnngb=desnngb, n_sweeps=n_sweeps,
+            sb_mode=sb_mode, do_disp=do_disp, gdist=gdist, dkeep=dkeep,
+            prune=prune, hoist=hoist, stats=stats, packed=packed)
     rho, h, vf, wk, done = (out[:, :, k] for k in range(5))
     return rho, h, vf, wk, done > 0.5, out[:, :, 5:8]
 
 
 fused_wvt.launches = 0
+
+
+def _fused_wvt_cuda(pos_blocks, hm_blocks, cand, cnt, xi, h0, cap, hm_i,
+                    mpart, boxsize, *, kernel, desnngb, n_sweeps, sb_mode,
+                    do_disp, gdist, dkeep, prune, hoist, stats, packed,
+                    debug=0):
+    """Launch the ``fused_wvt`` kernel on checked CUDA arguments; returns
+    its (S, 128, 8) output.  ``debug`` is the C entry point's, for the
+    checks and timings on the card: 1, frozen lanes are swept like the
+    others; 2, every warp runs every kept block, whatever its tile says.
+    No output bit depends on it."""
+    dev = pos_blocks.device
+    nb = pos_blocks.shape[0]
+    S, M = cand.shape
+    # one CTA a row: the lists of a row must fit its shared memory
+    _cluster_size(S, M * SUPER if sb_mode else M, 1)
+    if packed is None:
+        packed = pack_fused_sources(pos_blocks, hm_blocks, boxsize)
+    _check_packed(packed, nb, dev)
+    hm_rows = hm_i if do_disp else None
+    r_pair = pair_range(cap, hm_rows, packed.w_max if do_disp else None,
+                        boxsize)
+    rtab, flag, order = _row_tables(cand, xi, cap, hm_rows, r_pair, boxsize,
+                                    hoist, cnt=cnt)
+    out = torch.empty((S, BLOCK, 8), dtype=torch.float32, device=dev)
+    _launch("fused_wvt", [
+        packed.src, packed.ctab, rtab, cand, cnt, flag, order, xi, h0, cap,
+        hm_i, gdist, None if dkeep is None else dkeep.to(torch.uint8), out,
+        stats, S, M, nb, _KIND[kernel], bool(sb_mode), bool(do_disp),
+        n_sweeps, bool(prune), debug, float(mpart), float(boxsize),
+        float(1.0 / boxsize), float(_INFL * boxsize), float(desnngb),
+        float(_rho_corr(desnngb, mpart, kernel))])
+    fused_wvt.launches += 1
+    return out
 
 
 def _fused_wvt_reference(pos_blocks, hm_blocks, cand, cnt, xi, h0, cap,

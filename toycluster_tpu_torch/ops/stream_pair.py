@@ -21,18 +21,22 @@ plain PyTorch version beside it (``_stream_wvt_reference`` /
 ``_stream_curl_reference``), which evaluates every listed pair with the
 same block-level loop.  Any other device raises.
 
-The ``stream_wvt`` kernel prunes member blocks itself, with the JAX
-package's chunk cross test (``build_chunk_tab``, ``stream_skip_bits``:
-their plain versions are here and are the test oracle of the kernel's
-test), and drops the periodic wrap from the pair loop on rows that need
-none (``prune_tables``).  Neither changes a bit of the kernel's outputs,
-so the plain version stays the reference of the kernel.
+Both kernels prune member blocks themselves, with the JAX package's
+chunk cross test (``build_chunk_tab``, ``stream_skip_bits``: their plain
+versions are here and are the test oracle of the kernels' test;
+``curl_keep`` is the curl's), and drop the periodic wrap from the pair
+loop on rows that need none (``interior_rows``).  Neither changes a bit
+of a kernel's outputs, so the plain versions stay the references.
+``stream_curl`` runs on the list walk of ``csrc/class_walk.cuh``, whose
+host side (``PackedSources``, ``_row_tables``, ``_cluster_size``) is
+here too, for ``ops/class_pair.py`` as well.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -60,6 +64,18 @@ N_CHUNKS = 8
 _INFL = 2.0 ** -21
 # the kernel's member lists hold list positions in 14 bits
 MAX_LIST_WIDTH = (1 << 14) // SUPER
+# the list walk of csrc/class_walk.cuh: CTAs a row may be split over (a
+# thread-block cluster), and the list entries one CTA's shared-memory
+# list holds
+MAX_CLUSTER = 8
+MAX_SHARE = 1 << 14
+# a call is split over clusters while it has fewer CTAs than this (132
+# SMs, two to four resident CTAs of 512 threads each) and every CTA's
+# share of the row keeps at least _MIN_SHARE entries.  Over the 36 calls
+# of the 1e6 reference run the rule came within 3% of the best size per
+# call (python -m toycluster_tpu_torch.cluster_sweep, PERF.md).
+_FILL_CTAS = 528
+_MIN_SHARE = 32
 
 
 def _spec_win(desnngb):
@@ -168,7 +184,19 @@ def build_chunk_tab(pos_t, hm_src_b, boxsize, n_chunks=N_CHUNKS):
     return tab.reshape(nb, n_chunks * 8).to(torch.float32).contiguous()
 
 
-def member_keep(rtab, mtab, boxsize, do_disp):
+def _warp_tiles(within):
+    """(C, E, 16) bool from the verdicts ``within`` (C, E, rc, mc) of the
+    8 x 8 chunk pairs: tile w holds if a pair of receiver chunks 2 (w % 4),
+    2 (w % 4) + 1 and member chunks 2 (w // 4), 2 (w // 4) + 1 does.  A
+    warp of the list-walk kernels serves those 32 receiver lanes and 32
+    sources (csrc/class_walk.cuh ``keep_tiles``) and skips a block whose
+    tile is clear."""
+    C, E = within.shape[:2]
+    t = within.reshape(C, E, 4, 2, 4, 2).any(dim=5).any(dim=3)  # (C,E,q,p)
+    return t.transpose(2, 3).reshape(C, E, 16)
+
+
+def member_keep(rtab, mtab, boxsize, do_disp, tiles=False):
     """The chunk cross test of receiver blocks against member blocks.
     ``rtab`` (C, 8, 8) receiver chunks [cen, ext, largest cap, largest
     hm_i (box units)], ``mtab`` (C, E, 8, 8) member chunks [cen, ext,
@@ -178,7 +206,9 @@ def member_keep(rtab, mtab, boxsize, do_disp):
     0.5 (hm_i + hm) boxsize; both thresholds are inflated by _INFL
     boxsize.  Every operation rounds as in the kernel's test
     (csrc/stream_wvt.cu ``hull_gap2``), so both keep the same members.
-    Returns (dens, disp), each (C, E) bool."""
+    Returns (dens, disp), each (C, E) bool, or with ``tiles`` each (C, E,
+    16) bool, the verdict per warp tile (``_warp_tiles``): a member is
+    kept where one of its tiles is."""
     ri = rtab[:, None, :, None, :]                       # (C,1,rc,1,8)
     cj = mtab[:, :, None, :, :]                          # (C,E,1,mc,8)
     infl = _INFL * boxsize
@@ -189,11 +219,14 @@ def member_keep(rtab, mtab, boxsize, do_disp):
                          min=0.0)
         g2 = gp * gp if g2 is None else g2 + gp * gp
     td = ri[..., 6] + infl
-    dens = (g2 <= td * td).flatten(2).any(dim=2)
+    dens = g2 <= td * td
+    dens = _warp_tiles(dens) if tiles else dens.flatten(2).any(dim=2)
     if not do_disp:
         return dens, torch.zeros_like(dens)
     tx = 0.5 * (ri[..., 7] + cj[..., 6]) * boxsize + infl
-    return dens, (g2 <= tx * tx).flatten(2).any(dim=2)
+    disp = g2 <= tx * tx
+    return dens, (_warp_tiles(disp) if tiles
+                  else disp.flatten(2).any(dim=2))
 
 
 def _listed_members(cand, cnt, nb, sb_mode=True):
@@ -207,24 +240,30 @@ def _listed_members(cand, cnt, nb, sb_mode=True):
     return list_entries(listed, nb, sb_mode)
 
 
-def _keep_rows(rtab, ctab, cand, cnt, boxsize, do_disp, sb_mode=True):
+def _keep_rows(rtab, ctab, cand, cnt, boxsize, do_disp, sb_mode=True,
+               tiles=False):
     """``member_keep`` over every row of the lists ``cand`` (S, M) of
     superblock ids (block ids without ``sb_mode``) in row chunks: returns
-    (dens, disp, listed), each (S, E) bool as ``_listed_members``;
-    unlisted members are kept by neither test."""
+    (dens, disp, listed), each (S, E) bool as ``_listed_members`` (dens
+    and disp (S, E, 16) with ``tiles``); unlisted members are kept by
+    neither test."""
     nb = ctab.shape[0]
     e, ok = _listed_members(cand, cnt, nb, sb_mode)
-    dens = torch.zeros_like(ok)
-    disp = torch.zeros_like(ok)
+    if tiles:
+        ok = ok[..., None]
+    dens = torch.zeros(ok.shape[:2] + ((16,) if tiles else ()),
+                       dtype=torch.bool, device=ok.device)
+    disp = torch.zeros_like(dens)
     per_row = max(e.shape[1] * N_CHUNKS * N_CHUNKS, 1)
     step = max(1, _PAIR_BUDGET[cand.device.type] // 4 // per_row)
     mt = ctab.reshape(nb, N_CHUNKS, 8)
     for s0 in range(0, cand.shape[0], step):
         s1 = min(s0 + step, cand.shape[0])
-        d, x = member_keep(rtab[s0:s1], mt[e[s0:s1]], boxsize, do_disp)
+        d, x = member_keep(rtab[s0:s1], mt[e[s0:s1]], boxsize, do_disp,
+                           tiles)
         dens[s0:s1] = d & ok[s0:s1]
         disp[s0:s1] = x & ok[s0:s1]
-    return dens, disp, ok
+    return dens, disp, (ok[..., 0] if tiles else ok)
 
 
 def pair_range(cap_rows, hm_rows, bhm_max, boxsize):
@@ -335,6 +374,67 @@ def member_counts(src_blocks, cand, cnt, xi, cap, hm_i, boxsize, *,
     dens, disp, ok = _keep_rows(rtab, ctab, cand, cnt, boxsize, do_disp)
     return torch.stack([(dens | disp).sum(dim=1), dens.sum(dim=1),
                         ok.sum(dim=1)], dim=1).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# The list walk of csrc/class_walk.cuh: what its kernels read
+# --------------------------------------------------------------------------
+
+class PackedSources(NamedTuple):
+    """The sources as the list-walk kernels read them: ``src`` (nb, 128,
+    4) records (x, y, z, w) (``stream_curl``: (nb, 256, 4), the 128
+    (a0, a1, a2, 0) records after them), ``ctab`` (nb, 64) their chunk
+    table (``build_chunk_tab``), ``w_max`` the largest w."""
+    src: torch.Tensor
+    ctab: torch.Tensor
+    w_max: torch.Tensor
+
+
+def _check_packed(packed, nb, dev, recs=1):
+    _check("packed.src", packed.src, torch.float32, (nb, recs * BLOCK, 4),
+           dev)
+    _check("packed.ctab", packed.ctab, torch.float32, (nb, 64), dev)
+
+
+def _cluster_size(n_rows, n_entries, cluster):
+    """CTAs a row is split over: ``cluster`` if given, else doubled from 1
+    while the call has fewer than _FILL_CTAS CTAs and every share keeps
+    _MIN_SHARE entries, or until a share fits a CTA's list.  Raises if no
+    allowed size holds the list."""
+    if cluster is None:
+        cluster = 1
+        while cluster < MAX_CLUSTER and (
+                -(-n_entries // cluster) > MAX_SHARE
+                or (n_rows * cluster < _FILL_CTAS
+                    and n_entries >= 2 * cluster * _MIN_SHARE)):
+            cluster *= 2
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, "
+                         f"not {cluster}")
+    if -(-n_entries // cluster) > MAX_SHARE:
+        raise ValueError(
+            f"a list of {n_entries} blocks over {cluster} CTAs exceeds the "
+            f"{MAX_SHARE} entries of a CTA's shared-memory list")
+    return cluster
+
+
+def _row_tables(cand, xi, cap, h_i, r_pair, boxsize, hoist, cnt=None):
+    """What the list-walk kernels read per row: the receiver chunks
+    (S, 8, 8) (largest cap in column 6 for the density, largest h_i in
+    column 7 for the displacement), the flag (S,) int32 of the rows that
+    skip the periodic wrap (``interior_rows`` at the row's largest pair
+    range ``r_pair``; zeros without ``hoist``), and the rows ordered
+    longest list first (by ``cnt`` where the kernel reads only the first
+    cnt entries)."""
+    lane = cap if cap is not None else h_i
+    rtab = _recv_tab(build_chunk_tab(xi, lane, boxsize), lane, h_i)
+    flag = interior_rows(xi, r_pair, boxsize).to(torch.int32)
+    if not hoist:
+        flag = torch.zeros_like(flag)
+    length = (cand >= 0).sum(dim=1) if cnt is None else cnt
+    order = torch.argsort(length, descending=True,
+                          stable=True).to(torch.int32)
+    return rtab.contiguous(), flag.contiguous(), order
 
 
 # --------------------------------------------------------------------------
@@ -626,28 +726,90 @@ def _stream_wvt_reference(src_blocks, cand, cnt, xi, h0, cap, hm_i, mpart,
 # SPH curl
 # --------------------------------------------------------------------------
 
+def pack_curl_sources(src_blocks, boxsize):
+    """``PackedSources`` of ``stream_curl`` from its (nb, 8, 128) sources
+    (x, y, z, valid, A0, A1, A2, pad): per block 128 (x, y, z, valid)
+    records, then 128 (A0, A1, A2, pad) records, and the chunk table of
+    the valid sources.  A caller with several calls over the same
+    sources packs once and passes ``packed=``."""
+    nb = src_blocks.shape[0]
+    src = src_blocks.reshape(nb, 2, 4, BLOCK).transpose(2, 3).reshape(
+        nb, 2 * BLOCK, 4)
+    return PackedSources(
+        src.contiguous(),
+        build_chunk_tab(src_blocks[:, :3], src_blocks[:, 3], boxsize),
+        src_blocks[:, 3].amax())
+
+
+def curl_keep(src_blocks, cand, cnt, xi, hsml, boxsize, *, sb_mode=False,
+              tiles=False):
+    """The plain oracle of ``stream_curl``'s member test: (kept, listed),
+    each (S, E) bool, E = M or M * 8 with ``sb_mode``; with ``tiles`` kept
+    is (S, E, 16), the verdict per warp tile (``_warp_tiles``).  Of the first
+    min(cnt, M) list entries a block is kept if the minimum-image gap
+    between one of its 16-particle chunk hulls and one of the receiver
+    block's is at most that receiver chunk's largest hsml (inflated as
+    ``member_keep`` does): the JAX curl's ``stream_skip_bits`` call, with
+    the chunk cross test."""
+    ctab = build_chunk_tab(src_blocks[:, :3], src_blocks[:, 3], boxsize)
+    rtab = _recv_tab(build_chunk_tab(xi, hsml, boxsize), hsml, None)
+    kept, _, ok = _keep_rows(rtab, ctab, cand, cnt, boxsize, False, sb_mode,
+                             tiles)
+    return kept, ok
+
+
 def stream_curl(src_blocks, cand, cnt, xi, hsml, wfac, apot_t, mpart,
-                boxsize, *, kernel="wc6", sb_mode=False):
+                boxsize, *, kernel="wc6", sb_mode=False, prune=True,
+                hoist=True, cluster=None, stats=None, packed=None):
     """B_i = wfac_i sum_j dW(r, h_i)/dr / r (dx x (A_i - A_j)) over
     r < h_i, r > 0, j valid (Price 2010 eq. 79, sph.c:216-300), with
     wfac = -m varHsmlFac / rho.  ``apot_t`` (S, 3, 128) is the receivers'
     vector potential.  ``cand`` holds block ids (the count-class
     engine's lists) or, with ``sb_mode``, superblock ids (the stream
-    engine's lists and the far-tail rows).  Returns (S, 128, 3)."""
+    engine's lists and the far-tail rows); the first min(cnt, M) entries
+    are read.  Returns (S, 128, 3).
+
+    The kernel walks only the listed blocks that ``curl_keep`` keeps
+    (each warp only those whose tile of its 32 lanes and 32 sources the
+    test keeps) and skips the periodic wrap on interior rows; ``prune=False`` /
+    ``hoist=False`` turn that off, for the checks that neither changes a
+    bit.  ``cluster`` (1..8) fixes the CTAs a row is split over (None:
+    ``_cluster_size``; the size changes the order of the sums).
+    ``stats``, an optional (S, 5) int32 output, receives per row 1, the
+    blocks kept, the blocks listed, the blocks walked (the kept ones) and
+    the warp tiles walked, 16 a block (the plain version evaluates every
+    listed pair all the same and reports the oracle's counts).
+    ``packed`` takes ``pack_curl_sources(src_blocks, boxsize)``."""
     dev, nb, S, M = _check_common(src_blocks, 8, cand, cnt, xi,
                                   dict(hsml=hsml, wfac=wfac))
     _check("apot_t", apot_t, torch.float32, (S, 3, BLOCK), dev)
     if kernel not in _KIND:
         raise ValueError(f"unknown kernel {kernel!r}")
+    if stats is not None:
+        _check("stats", stats, torch.int32, (S, 5), dev)
     if dev.type == "cpu":
+        if stats is not None:
+            kept, ok = curl_keep(src_blocks, cand, cnt, xi, hsml, boxsize,
+                                 sb_mode=sb_mode, tiles=True)
+            stats[:, 0] = 1
+            stats[:, 1] = stats[:, 3] = kept.any(dim=2).sum(dim=1)
+            stats[:, 2] = ok.sum(dim=1)
+            stats[:, 4] = kept.sum(dim=(1, 2))
         return _stream_curl_reference(src_blocks, cand, cnt, xi, hsml,
                                       wfac, apot_t, mpart, boxsize,
                                       kernel=kernel, sb_mode=sb_mode)
+    cluster = _cluster_size(S, M * SUPER if sb_mode else M, cluster)
+    if packed is None:
+        packed = pack_curl_sources(src_blocks, boxsize)
+    _check_packed(packed, nb, dev, recs=2)
+    rtab, flag, order = _row_tables(cand, xi, hsml, None, hsml.amax(dim=1),
+                                    boxsize, hoist, cnt=cnt)
     out = torch.empty((S, BLOCK, 3), dtype=torch.float32, device=dev)
     _launch("stream_curl", [
-        _pad_superblocks(src_blocks) if sb_mode else src_blocks, cand, cnt,
-        xi, hsml, wfac, apot_t, out, S, M, nb, _KIND[kernel], bool(sb_mode),
-        float(boxsize)])
+        packed.src, packed.ctab, rtab, cand, cnt, flag, order, xi, hsml,
+        wfac, apot_t, out, stats, S, M, nb, _KIND[kernel], bool(sb_mode),
+        bool(prune), cluster, float(boxsize), float(1.0 / boxsize),
+        float(_INFL * boxsize)])
     stream_curl.launches += 1
     return out
 
