@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 With ``--parent-csrc DIR`` (the csrc directory of another tree whose
 fused_wvt and stream_curl kernels have the one-CTA-of-128-threads C
-interface) step 5 also builds those two kernels and times them on the same
+interface) step 6 also builds those two kernels and times them on the same
 recorded inputs, in turns with this tree's (parent, change, change,
 parent).
 
@@ -38,7 +38,21 @@ parent).
    particles, finite, rho/u/bfld nonzero on the gas).  Prints the
    per-stage wall times and the WVT particle updates per second of each
    run.
-5. Holds each kernel against its plain version again on the inputs of
+5. Drives the config-4 scene (configs/run_configs.py:29-30 as overrides
+   of the repository's par: a 1:3 merger with Giocoli substructure)
+   through ``make_ics(device="cuda", check=True)`` twice, counted as in
+   step 4: at Ntotal 1e7 on the stream engine, and at 1e6 on
+   engine=classed with SLOW_SUBSTRUCTURE.  After each run it checks that
+   the scene has subhalos and the particle budgets hold, that the
+   engine's kernels were launched, the contract fraction and err_mean as
+   in step 4, that the pipeline's density audit and a second one on 512
+   lanes of subhalo gas (direct summation, ops/brute.py) are within
+   5e-3, that the gas of the subhalos past index 1 keeps |B| <= BMAX_SUB
+   and that the snapshot reads back; it prints the halo count, the stage
+   times and the share of the per-halo loops and host tables in each,
+   the WVT record, per-row statistics of the first stream_wvt and
+   far-tail solve_density calls and the peak device memory.
+6. Holds each kernel against its plain version again on the inputs of
    its first main-path call (solve_density and wvt_displacement: of the
    first block-list call, the 512-wide count class, and of the first
    far-tail call, as records of their own; with the checks of step 3),
@@ -55,8 +69,8 @@ parent).
    only on the rows whose reach leaves the box).  fused_wvt is also timed
    without its frozen-lane skip and without its warp tiles.
 
-Prints the kernel record and the card line before the last line, and as
-the last line {"ok": true, "device": {...}}.  Any failure exits nonzero
+Prints the wall time of each phase, the kernel record and the card line
+before the last line, and as the last line {"ok": true, "device": {...}}.  Any failure exits nonzero
 without that line.
 """
 
@@ -111,6 +125,19 @@ OPS_DISP = 6                    # to box units (3), hbar (2), hbar^2
 EXTRA_KEYS = ("ms_unhoisted", "parent_ms", "ms_unpruned", "ms_cluster1",
               "cluster", "kept_over_listed", "walked_over_listed",
               "tiles_over_walked", "ms_no_skip", "ms_no_tiles")
+# the config-4 scenes of step 5: (engine, ntotal, SLOW_SUBSTRUCTURE)
+SUBSTRUCTURE_RUNS = (("stream", 10_000_000, False),
+                     ("classed", 1_000_000, True))
+# the per-halo work of a substructure scene, by module and function:
+# Python loops over the halos (some 8 small device ops a halo) and host
+# tables built one a halo; the config-4 runs time every call
+HALO_LOOPS = (("positions", "halo_containing_gas"),
+              ("positions", "halo_containing_dm"),
+              ("sph", "global_density_model"),
+              ("bfield", "set_vector_potential"),
+              ("temperature", "build_energy_tables_stacked"),
+              ("velocities", "build_velocity_tables"),
+              ("velocities", "gas_bulk_velocities"))
 # the kernel records of the classed main path
 CLASSED_NAMES = ("solve_density", "solve_density_sb", "wvt_displacement",
                  "wvt_displacement_sb", "fused_wvt", "stream_curl_blocks")
@@ -123,6 +150,13 @@ def fail(msg):
 
 def say(msg):
     print(msg, flush=True)
+
+
+def phase(name, t0):
+    """Print the wall time of the phase that began at t0; returns now."""
+    t = time.perf_counter()
+    say(f"phase {name}: {t - t0:.3f} s")
+    return t
 
 
 # ------------------------------------------------------------ comparisons
@@ -705,13 +739,14 @@ def check_kernels_on_cusp(torch, sp, cp, device):
 
 # --------------------------------------------------------------- main path
 
-def check_snapshot(out):
+def check_snapshot(out, n_total):
     from toycluster_tpu_torch.io.gadget import read_snapshot
     import numpy as np
     snap = read_snapshot(str(out))
     n_gas = snap["header"].npart[0]
-    if snap["pos"].shape[0] != 1_000_000:
-        fail(f"snapshot holds {snap['pos'].shape[0]} particles")
+    if snap["pos"].shape[0] != n_total:
+        fail(f"snapshot holds {snap['pos'].shape[0]} particles, not "
+             f"{n_total}")
     for k in ("pos", "vel", "ids", "u", "rho", "hsml", "bfld", "rho_model"):
         if not np.isfinite(snap[k]).all():
             fail(f"snapshot block {k} is not finite")
@@ -723,13 +758,15 @@ def check_snapshot(out):
     say(f"snapshot: {snap['pos'].shape[0]} particles, {n_gas} gas, finite")
 
 
-def run_main_path(torch, sp, cp, tmp, engine):
-    """The CLI main path on cuda with ``engine``: every launch counter
-    set to 0 just before, the first call's inputs of each kernel
-    recorded for step 5 (the stream engine's stand-alone density solve,
-    do_disp=False, is not recorded), and block-list stream_curl launches
-    counted apart.  Returns (launches, recorded)."""
-    from toycluster_tpu_torch import cli
+def counted(torch, sp, cp, drive):
+    """``drive()`` with every launch counter and the stage log's records
+    set to 0 just before; the kernel wrappers are patched by name to
+    record each kernel's first call's inputs for step 6 (the stream
+    engine's stand-alone density solve, do_disp=False, is not recorded)
+    and to count block-list stream_curl launches and each list mode of
+    solve_density and wvt_displacement apart.  Returns (drive's result,
+    launches by record name, launches by kernel, recorded inputs, wall s,
+    start time)."""
     from toycluster_tpu_torch.models import bfield, sph, wvt
     from toycluster_tpu_torch.utils import logging as tlog
 
@@ -769,8 +806,6 @@ def run_main_path(torch, sp, cp, tmp, engine):
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, fn in patches:
         setattr(mod, attr, fn)
-    par = ROOT / PKG / "data" / "cluster.par"
-    out = Path(tmp) / f"IC_{engine}"
     tlog.METRICS.clear()
     kernels = (sp.stream_wvt, sp.stream_curl, cp.solve_density,
                cp.wvt_displacement, cp.fused_wvt)
@@ -778,13 +813,13 @@ def run_main_path(torch, sp, cp, tmp, engine):
         k.launches = 0
     t0 = time.perf_counter()
     try:
-        rc = cli.main([str(par), f"output_file={out}", "device=cuda",
-                       f"engine={engine}"])
+        result = drive()
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    totals = {k.__name__: k.launches for k in kernels}
+    launches = dict(totals)
     # the count-class kernels' launches per list mode
     for k in (cp.solve_density, cp.wvt_displacement):
         name = k.__name__
@@ -794,6 +829,141 @@ def run_main_path(torch, sp, cp, tmp, engine):
         launches[name] = by_name[name]
         launches[name + "_sb"] = by_name[name + "_sb"]
     launches["stream_curl_blocks"] = by_name["stream_curl_blocks"]
+    return result, launches, totals, recorded, wall, t0
+
+
+def report_run(tag, t0):
+    """Print the stage times, the WVT record and the neighbour contract of
+    the run whose stage-log records ``tlog.METRICS`` holds; fail unless
+    err_mean fell and the contract fraction is >= 0.999.  Returns the
+    records."""
+    from toycluster_tpu_torch.models import sph
+    from toycluster_tpu_torch.utils import logging as tlog
+    for stage, t, dt in stage_spans(tlog.METRICS, t0):
+        say(f"[{tag}] stage {stage:<16} ends at {t:9.3f} s (+{dt:.3f} s)")
+    errs = [r["err_mean"] for r in tlog.METRICS if r["stage"] == "wvt"]
+    done = [r for r in tlog.METRICS if r["stage"] == "wvt_done"]
+    builds = [r for r in tlog.METRICS if r["stage"] == "wvt_build"]
+    retries = [r for r in tlog.METRICS if r["stage"] == "wvt_retry"]
+    say(f"[{tag}] wvt err_mean trajectory ({len(errs)} iterations): "
+        f"{errs}")
+    say(f"[{tag}] wvt builds {len(builds)}, far-tail rows per build "
+        f"{[r.get('tail_rows', 0) for r in builds]}, list widths "
+        f"{[r['max_cand'] for r in builds]}; retries "
+        f"{[(r['it'], r['n_sat']) for r in retries]}")
+    if len(errs) < 2 or not errs[-1] < 0.6 * errs[0]:
+        fail(f"err_mean did not fall: {errs}")
+    say(f"[{tag}] wvt: {done[0]['iterations']} iterations in "
+        f"{done[0]['seconds']:.3f} s = "
+        f"{done[0]['particle_updates_per_s']:.6g} particle updates/s")
+    frac = sph.last_contract_frac
+    say(f"[{tag}] neighbour contract fraction {frac}")
+    if not frac >= 0.999:
+        fail(f"contract fraction {frac} < 0.999")
+    return list(tlog.METRICS)
+
+
+def stage_spans(records, t0):
+    """(stage, end, seconds) for each stage-log record of a run that
+    began at t0; the WVT loop's own records fold into its wvt_done."""
+    from toycluster_tpu_torch.utils import logging as tlog
+    prev = t0 - tlog._T0
+    for rec in records:
+        if rec["stage"].startswith("wvt") and rec["stage"] != "wvt_done":
+            continue
+        yield rec["stage"], rec["t"], rec["t"] - prev
+        prev = rec["t"]
+
+
+def timed_halo_loops(torch):
+    """Patch the HALO_LOOPS functions to time each call, synchronised
+    before and after, and book it to the stage the log records next.
+    Returns (book {(record index, name): [calls, s]}, restore)."""
+    import importlib
+    from toycluster_tpu_torch.utils import logging as tlog
+    book, saved = {}, []
+    for mod_name, attr in HALO_LOOPS:
+        mod = importlib.import_module(f"{PKG}.models.{mod_name}")
+        fn = getattr(mod, attr)
+
+        def timed(*args, _fn=fn, _name=attr, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec = book.setdefault((len(tlog.METRICS), _name), [0, 0.0])
+            rec[0] += 1
+            rec[1] += time.perf_counter() - t
+            return out
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, timed)
+
+    def restore():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return book, restore
+
+
+def report_halo_loops(tag, book, records, t0):
+    """Print, for each stage, the time of each per-halo function in it
+    and its share of the stage."""
+    times = Counter()
+    for stage, _, dt in stage_spans(records, t0):
+        times[stage] += dt
+    per_stage = {}
+    for (i, name), (calls, sec) in book.items():
+        stage = records[i]["stage"] if i < len(records) else "end"
+        stage = "wvt_done" if stage.startswith("wvt") else stage
+        c = per_stage.setdefault(stage, {}).setdefault(name, [0, 0.0])
+        c[0] += calls
+        c[1] += sec
+    for stage, fns in per_stage.items():
+        total = times.get(stage, float("nan"))
+        say(f"[{tag}] per-halo work in stage {stage} ({total:.3f} s): " +
+            "; ".join(f"{n} {c} calls {sec:.3f} s ({sec / total:.3f} of "
+                      f"the stage)" for n, (c, sec) in fns.items()))
+
+
+def first_call_stats(torch, sp, cp, tag, recorded):
+    """Per-row statistics of a run's first stream_wvt call and first
+    far-tail solve_density call, from the kernels' stats outputs (these
+    launches come after the counted run): sweeps, members or blocks
+    listed, kept and walked, and the far-tail call's CTAs a row."""
+    if "stream_wvt" in recorded:
+        args, kw = recorded["stream_wvt"]
+        cand = args[1]
+        st = torch.zeros((cand.shape[0], 4), dtype=torch.int32,
+                         device=cand.device)
+        sp.stream_wvt(*args, **kw, stats=st)
+        say(f"[{tag}] first stream_wvt call: rows {cand.shape[0]} width "
+            f"{cand.shape[1]}; per row (median, p99, max) sweeps "
+            f"{quantiles(torch, st[:, 0])}, members listed "
+            f"{quantiles(torch, st[:, 3])}, kept {quantiles(torch, st[:, 1])}"
+            f"; kept/listed {int(st[:, 1].sum()) / int(st[:, 3].sum()):.4f}")
+    if "solve_density_sb" in recorded:
+        args, kw = recorded["solve_density_sb"]
+        cand = args[2]
+        st = torch.zeros((cand.shape[0], 4), dtype=torch.int32,
+                         device=cand.device)
+        cp.solve_density(*args, **kw, stats=st)
+        say(f"[{tag}] first far-tail solve_density call: rows "
+            f"{cand.shape[0]} width {cand.shape[1]}, "
+            f"{cp._cluster_size(cand.shape[0], cand.shape[1] * 8, None)} "
+            f"CTAs a row; per row (median, p99, max) sweeps "
+            f"{quantiles(torch, st[:, 0])}, blocks listed "
+            f"{quantiles(torch, st[:, 2])}, kept {quantiles(torch, st[:, 1])}"
+            f", walked over all sweeps {quantiles(torch, st[:, 3])}")
+
+
+def run_main_path(torch, sp, cp, tmp, engine):
+    """The CLI main path on cuda with ``engine``, counted (``counted``).
+    Returns (launches, recorded)."""
+    from toycluster_tpu_torch import cli
+    par = ROOT / PKG / "data" / "cluster.par"
+    out = Path(tmp) / f"IC_{engine}"
+    rc, launches, _, recorded, wall, t0 = counted(
+        torch, sp, cp, lambda: cli.main([str(par), f"output_file={out}",
+                                         "device=cuda", f"engine={engine}"]))
     if rc != 0:
         fail(f"cli.main returned {rc} (engine={engine})")
     need = (("stream_wvt", "stream_curl") if engine == "stream" else
@@ -805,35 +975,96 @@ def run_main_path(torch, sp, cp, tmp, engine):
         fail("the classed main path launched stream_wvt")
     say(f"main path engine={engine}: wall {wall:.3f} s, launches "
         f"{launches}")
-
-    prev = t0 - tlog._T0
-    for rec in tlog.METRICS:
-        if rec["stage"].startswith("wvt") and rec["stage"] != "wvt_done":
-            continue
-        say(f"[{engine}] stage {rec['stage']:<16} ends at {rec['t']:9.3f} s "
-            f"(+{rec['t'] - prev:.3f} s)")
-        prev = rec["t"]
-    errs = [r["err_mean"] for r in tlog.METRICS if r["stage"] == "wvt"]
-    done = [r for r in tlog.METRICS if r["stage"] == "wvt_done"]
-    builds = [r for r in tlog.METRICS if r["stage"] == "wvt_build"]
-    retries = [r for r in tlog.METRICS if r["stage"] == "wvt_retry"]
-    say(f"[{engine}] wvt err_mean trajectory ({len(errs)} iterations): "
-        f"{errs}")
-    say(f"[{engine}] wvt builds {len(builds)}, far-tail rows per build "
-        f"{[r.get('tail_rows', 0) for r in builds]}, list widths "
-        f"{[r['max_cand'] for r in builds]}; retries "
-        f"{[(r['it'], r['n_sat']) for r in retries]}")
-    if len(errs) < 2 or not errs[-1] < 0.6 * errs[0]:
-        fail(f"err_mean did not fall: {errs}")
-    say(f"[{engine}] wvt: {done[0]['iterations']} iterations in "
-        f"{done[0]['seconds']:.3f} s = "
-        f"{done[0]['particle_updates_per_s']:.6g} particle updates/s")
-    frac = sph.last_contract_frac
-    say(f"[{engine}] neighbour contract fraction {frac}")
-    if not frac >= 0.999:
-        fail(f"contract fraction {frac} < 0.999")
-    check_snapshot(out)
+    report_run(engine, t0)
+    check_snapshot(out, 1_000_000)
     return launches, recorded
+
+
+def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
+    """The config-4 scene (configs/run_configs.py:29-30 as overrides of
+    the repository's par: mass ratio 1/3, Giocoli substructure, the
+    subhalo tables) at ``ntotal`` through ``make_ics(device="cuda",
+    engine=engine, check=True)``, counted (``counted``), with
+    SLOW_SUBSTRUCTURE when ``slow``.  Fails unless the scene has
+    subhalos, the particle budgets hold, the engine's kernels launched,
+    err_mean fell, the contract fraction is >= 0.999, the pipeline's
+    density audit and a second one on subhalo gas are <= 5e-3, the gas of
+    the subhalos past index 1 keeps |B| <= BMAX_SUB and the snapshot
+    reads back."""
+    from toycluster_tpu_torch.config import parse_par_file
+    from toycluster_tpu_torch.models.bfield import BMAX_SUB
+    from toycluster_tpu_torch.ops.brute import density_at
+    from toycluster_tpu_torch.pipeline import make_ics
+    from toycluster_tpu_torch.scene import build_scene
+    tag = f"config-4 {ntotal:.0e} {engine}"
+    out = Path(tmp) / f"IC_sub_{engine}"
+    cfg = parse_par_file(ROOT / PKG / "data" / "cluster.par",
+                         ntotal=ntotal, mass_ratio=1.0 / 3.0,
+                         substructure=True, report_subhalos=True,
+                         slow_substructure=slow, output_file=str(out))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    book, restore = timed_halo_loops(torch)
+    try:
+        (scene, parts), launches, totals, recorded, wall, t0 = counted(
+            torch, sp, cp, lambda: make_ics(cfg, device="cuda",
+                                            engine=engine, check=True))
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    nsub = scene.nhalos - scene.sub_first
+    say(f"[{tag}] {scene.nhalos} halos ({nsub} subhalos from index "
+        f"{scene.sub_first}), {scene.npart_gas} gas, {scene.npart_dm} DM, "
+        f"subhalo gas {sum(h.npart_gas for h in scene.halos[scene.sub_first:])}"
+        f"; slow_substructure={slow}; wall {wall:.3f} s; launches {launches}")
+    if not nsub > 0:
+        fail(f"{tag}: no subhalos")
+    base = build_scene(cfg)
+    n_gas = parts.n_gas
+    per_halo = torch.bincount(parts.halo[n_gas:].long(),
+                              minlength=scene.nhalos).tolist()
+    if not (sum(h.npart_gas for h in scene.halos) == base.npart_gas == n_gas
+            and sum(h.npart_dm for h in scene.halos) == base.npart_dm
+            and per_halo == [h.npart_dm for h in scene.halos]):
+        fail(f"{tag}: particle budgets not conserved")
+    libs = (("stream_wvt", "stream_curl") if engine == "stream" else
+            ("solve_density", "wvt_displacement", "fused_wvt",
+             "stream_curl"))
+    for name in libs:
+        if totals[name] <= 0:
+            fail(f"the {tag} run launched {name} no time")
+    if engine == "classed" and totals["stream_wvt"] != 0:
+        fail(f"the {tag} run launched stream_wvt")
+    recs = report_run(tag, t0)
+    report_halo_loops(tag, book, recs, t0)
+    first_call_stats(torch, sp, cp, tag, recorded)
+    del recorded
+    audit = [r for r in recs if r["stage"] == "check_density"]
+    if not audit or not audit[0].get("worst_rel_err", 1.0) <= 5e-3:
+        fail(f"{tag}: check_density {audit}")
+    sub = torch.nonzero(parts.halo[:n_gas] >= scene.sub_first).flatten()
+    idx = sub[torch.linspace(0, sub.numel() - 1, min(512, sub.numel()),
+                             device=sub.device).long()]
+    rho = density_at(parts.pos[idx], parts.hsml[idx], parts.pos[:n_gas],
+                     scene.mpart_gas, scene.boxsize, kernel=cfg.sph_kernel,
+                     desnngb=cfg.desnngb)
+    worst = float(((rho - parts.rho[idx]).abs() / parts.rho[idx]).max())
+    say(f"[{tag}] density audits: check_density worst rel err "
+        f"{audit[0]['worst_rel_err']} on {audit[0]['n']} gas lanes; "
+        f"subhalo gas worst rel err {worst:.6g} on {idx.numel()} lanes")
+    if not worst <= 5e-3:
+        fail(f"{tag}: subhalo-gas density audit {worst}")
+    b = torch.linalg.vector_norm(parts.bfld[parts.halo[:n_gas] > 1], dim=-1)
+    if b.numel() and float(b.max()) > BMAX_SUB * (1 + 1e-5):
+        fail(f"{tag}: |B| {float(b.max())} > BMAX_SUB on subhalo gas")
+    say(f"[{tag}] max |B| on the gas of halos > 1: "
+        f"{float(b.max()) if b.numel() else 0.0:.6g} G "
+        f"(BMAX_SUB {BMAX_SUB:g}) over {b.numel()} particles")
+    say(f"[{tag}] peak device memory {peak / 2**30:.4f} GiB "
+        f"({mem0 / 2**30:.4f} GiB held before the run)")
+    del parts
+    check_snapshot(out, ntotal)
 
 
 def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
@@ -923,7 +1154,9 @@ def main():
                     or "Compiling entry" in line):
                 say(f"  nvcc {name}: {line.strip()}")
 
+    t0 = phase("build", t0)
     check_kernels_on_cusp(torch, sp, cp, torch.device("cuda"))
+    t0 = phase("kernels against plain versions on the cusp", t0)
 
     launches, recorded = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -936,6 +1169,10 @@ def main():
                 if name not in run_recorded:
                     fail(f"no {name} call was recorded")
                 recorded[name] = run_recorded[name]
+            t0 = phase(f"1e6 main path, engine={engine}", t0)
+        for engine, ntotal, slow in SUBSTRUCTURE_RUNS:
+            run_substructure(torch, sp, cp, tmp, engine, ntotal, slow)
+            t0 = phase(f"config-4 {ntotal:.0e}, engine={engine}", t0)
     parent = None
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()
@@ -943,6 +1180,7 @@ def main():
         say(f"build of the parent's fused_wvt and stream_curl "
             f"({opts.parent_csrc}): {time.perf_counter() - t0:.3f} s")
     res = time_on_main_path_inputs(torch, sp, cp, recorded, parent)
+    phase("kernels on main-path inputs", t0)
     # no single PyTorch call computes a per-lane h solve or an SPH pair
     # sum over candidate lists: library_ms is null for every kernel
     record = {"kernels": [

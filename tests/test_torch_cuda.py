@@ -662,3 +662,67 @@ def test_trace_sees_both_kernels_on_the_device(dev, capsys):
     assert "stream_wvt_kernel" in out and "stream_curl_kernel" in out
     share = float(out.split("idle share ")[1].split()[0])
     assert 0.0 <= share < 1.0
+
+
+def _subhalo_scene(dev, kernel="m4"):
+    """The 60,000-particle config-4 scene (mass ratio 1/3, Giocoli
+    substructure) with its halo arrays on the card."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.models.substructure import setup_substructure
+    from toycluster_tpu_torch.particles import halo_arrays_from_scene
+    from toycluster_tpu_torch.scene import build_scene
+    cfg = parse_par_file(str(_PAR), ntotal=60000, mass_ratio=1.0 / 3.0,
+                         substructure=True, sph_kernel=kernel)
+    scene = setup_substructure(build_scene(cfg), seed=cfg.seed + 7)
+    return scene, halo_arrays_from_scene(scene, dev)
+
+
+@pytest.mark.parametrize("kind", ["dm", "gas"])
+def test_batched_subhalo_sampler_on_cuda(dev, kind):
+    """The batched subhalo sampler on the card fills every target, with
+    every lane inside its subhalo's sampling radius."""
+    from toycluster_tpu_torch.models import positions as pos_mod
+    scene, ha = _subhalo_scene(dev)
+    idxs = list(range(scene.sub_first, scene.nhalos))
+    assert len(idxs) >= 4
+    ns = [getattr(scene.halos[i], f"npart_{kind}") for i in idxs]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    res = pos_mod._batched_fill(gen, ha, idxs, ns, kind, scene.boxsize,
+                                sub_first=scene.sub_first)
+    r_max = ha.r_sample_dm if kind == "dm" else ha.r_sample_gas
+    for i, n in zip(idxs, ns):
+        pos, filled = res[i]
+        assert pos.device.type == "cuda" and pos.shape == (n, 3)
+        assert filled == n
+        r = torch.linalg.vector_norm(pos, dim=-1)
+        assert bool((r <= r_max[i] * 1.001).all()) and bool((r > 0).all())
+
+
+@pytest.mark.parametrize("engine", ["stream", "classed"])
+def test_subhalo_scene_on_cuda_with_density_audit(dev, engine):
+    """make_ics on the 60,000-particle config-4 scene on the card, with
+    the density audit against direct summation: subhalos, the engine's
+    kernels, contract >= 0.999, audit <= 5e-3, finite fields."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.models import sph
+    from toycluster_tpu_torch.pipeline import make_ics
+    cfg = parse_par_file(str(_PAR), ntotal=60000, mass_ratio=1.0 / 3.0,
+                         substructure=True, wvt_max_iter=8)
+    logs = {}
+    for k in (sp.stream_wvt, sp.stream_curl, cp.solve_density,
+              cp.wvt_displacement, cp.fused_wvt):
+        k.launches = 0
+    scene, parts = make_ics(cfg, device="cuda", engine=engine, check=True,
+                            write=False,
+                            log=lambda stage, **kw: logs.setdefault(stage, kw))
+    assert scene.nhalos > scene.sub_first
+    assert logs["substructure"]["nsub"] == scene.nhalos - scene.sub_first
+    assert logs["check_density"]["worst_rel_err"] <= 5e-3
+    assert sph.last_contract_frac >= 0.999
+    if engine == "stream":
+        assert sp.stream_wvt.launches > 0
+    else:
+        assert sp.stream_wvt.launches == 0 and cp.solve_density.launches > 0
+    assert sp.stream_curl.launches > 0
+    for k in ("pos", "vel", "rho", "hsml", "bfld"):
+        assert bool(torch.isfinite(getattr(parts, k)).all()), k

@@ -125,6 +125,8 @@ def test_port_imports_no_jax():
             "toycluster_tpu_torch.models.bfield, "
             "toycluster_tpu_torch.models.velocities, "
             "toycluster_tpu_torch.models.temperature, "
+            "toycluster_tpu_torch.models.substructure, "
+            "toycluster_tpu_torch.ops.brute, "
             "toycluster_tpu_torch.from_reference, "
             "toycluster_tpu_torch.ops.stream_pair, "
             "toycluster_tpu_torch.ops.cuda_build, "
@@ -171,10 +173,3 @@ def test_trace_needs_a_card_and_unions_device_intervals():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         trace.main([PAR, "ntotal=2000"])
-
-
-def test_substructure_not_ported_raises():
-    from toycluster_tpu_torch.pipeline import make_ics
-    cfg = parse_par_file(PAR, ntotal=2000, substructure=True)
-    with pytest.raises(NotImplementedError, match="substructure"):
-        make_ics(cfg, device="cpu", write=False)

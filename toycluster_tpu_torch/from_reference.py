@@ -3,9 +3,10 @@
 JAX counterpart: none (the JAX package's state is the input).  The JAX
 package's ``Particles``, ``HaloArrays`` and block-granular
 ``NeighbourState`` are handed over as dicts of NumPy arrays (e.g.
-``{k: np.asarray(v) for k, v in parts._asdict().items()}``), so both
-packages can be fed the same state, as weights are carried across
-between frameworks.
+``{k: np.asarray(v) for k, v in parts._asdict().items()}``), and its
+``Scene`` as its scalar fields and one dict a ``HaloModel``
+(``dataclasses.asdict``), so both packages can be fed the same state, as
+weights are carried across between frameworks.
 """
 
 from __future__ import annotations
@@ -15,7 +16,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from .config import Config
+from .cosmology import cosmology_from_config
+from .models.tables import MassTable
 from .particles import HaloArrays, Particles
+from .scene import HaloModel, Scene
+from .units import units_from_config
+from .utils.splines import NaturalSpline
 
 # NumPy dtype of the JAX state -> NumPy dtype of the tensor
 _DTYPES = {np.dtype(np.float64): np.float32, np.dtype(np.float32): np.float32,
@@ -46,6 +53,39 @@ def halo_arrays_from_numpy(d: dict, device="cpu") -> HaloArrays:
     t = scene_arrays_from_numpy(d, device)
     return HaloArrays(**{f.name: t[f.name] for f in dataclasses.fields(
         HaloArrays)})
+
+
+def _mass_table(d) -> MassTable | None:
+    if d is None:
+        return None
+
+    def spline(k):
+        return NaturalSpline(**{f: np.asarray(v, np.float64)
+                                for f, v in d[k].items()})
+
+    return MassTable(r=np.asarray(d["r"], np.float64),
+                     m=np.asarray(d["m"], np.float64),
+                     spline=spline("spline"), inv_spline=spline("inv_spline"),
+                     r_clip=float(d["r_clip"]))
+
+
+def scene_from_numpy(cfg: Config, fields: dict, halos) -> Scene:
+    """The JAX package's Scene -> the port's: ``cfg`` the port's Config of
+    the same run, ``fields`` the Scene's other fields (boxsize, particle
+    masses and counts, ..., sub_first), ``halos`` one dict a HaloModel,
+    its mass table and the table's splines nested as dicts of NumPy
+    arrays (``dataclasses.asdict`` of the JAX HaloModel).  Units and
+    cosmology are derived from ``cfg``."""
+    cfg = cfg.validate()
+    hs = []
+    for h in halos:
+        h = dict(h)
+        h["d_com"] = tuple(float(x) for x in h["d_com"])
+        h["bulk_vel"] = tuple(float(x) for x in h["bulk_vel"])
+        h["mass_table"] = _mass_table(h["mass_table"])
+        hs.append(HaloModel(**h))
+    return Scene(config=cfg, units=units_from_config(cfg),
+                 cosmo=cosmology_from_config(cfg), halos=tuple(hs), **fields)
 
 
 def neighbour_state_from_numpy(index: dict, cand: dict, h_cap, *,

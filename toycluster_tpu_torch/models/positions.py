@@ -5,9 +5,11 @@ per-particle rejection loops (positions.c:25-133) become oversampled
 batch rejection: each round draws one batch of iid candidates from an
 explicit ``torch.Generator``, tests acceptance per lane and keeps the
 accepted lanes in draw order, so the kept prefix follows exactly the
-reference's conditional distribution.  Positions are sampled around each
-halo's centre; ``shift_origin`` moves them into the periodic box
-(setup.c:427-500).
+reference's conditional distribution.  Subhalos (four or more) are drawn
+together by size class (``_batched_fill``): one round draws candidates
+for every halo of the class and costs one host sync.  Positions are
+sampled around each halo's centre; ``shift_origin`` moves them into the
+periodic box (setup.c:427-500).
 """
 
 from __future__ import annotations
@@ -97,19 +99,50 @@ def _rejection_fill(n, draw, p_est=0.92):
     return pos, filled
 
 
+def _draw_dm(gen, ha: HaloArrays, hid, m: int, sub_first: int,
+             boxsize: float):
+    """m Hernquist inverse-CDF candidates for each halo of ``hid`` (H,)
+    (positions.c:48-65) and their acceptance by the halo itself:
+    (cand (H, m, 3), ok (H, m))."""
+    H = hid.shape[0]
+    dirs = sphere_dirs(gen, H * m).reshape(H, m, 3)
+    sq = torch.sqrt(uniform(gen, H * m).reshape(H, m)
+                    * ha.mass_corr_fac[hid][:, None])
+    a = ha.a_hernq[hid][:, None]
+    cand = dirs * (a * sq / (1.0 - sq))[..., None]
+    owner = halo_containing_dm((cand + ha.d_com[hid][:, None]).reshape(-1, 3),
+                               ha, sub_first, boxsize)
+    return cand, owner.reshape(H, m) == hid[:, None]
+
+
+def _draw_gas(gen, ha: HaloArrays, hid, m: int, boxsize: float,
+              cool_core=None):
+    """m beta-model candidates for each halo of ``hid`` by inverting its
+    tabulated M(<r) (positions.c:105-106), accepted where the halo owns
+    them inside the box: (cand (H, m, 3), ok (H, m))."""
+    H = hid.shape[0]
+    table = SplineTable(ha.minv_x[hid], ha.minv_y[hid], ha.minv_m2[hid])
+    dirs = sphere_dirs(gen, H * m).reshape(H, m, 3)
+    mass = uniform(gen, H * m).reshape(H, m) * ha.mass_gas[hid][:, None]
+    cand = dirs * spline_eval(table, mass)[..., None]
+    owner = halo_containing_gas(
+        (cand + ha.d_com[hid][:, None]).reshape(-1, 3), ha, boxsize,
+        cool_core).reshape(H, m)
+    inside = (torch.abs(cand) <= boxsize / 2.0).all(dim=-1)
+    return cand, (owner == hid[:, None]) & inside
+
+
+def _one(ha, i):
+    return torch.tensor([i], dtype=torch.long, device=ha.d_com.device)
+
+
 def sample_halo_dm(gen, ha: HaloArrays, i: int, n: int, sub_first: int,
                    boxsize: float):
     """Hernquist inverse-CDF sampling with foreign-halo rejection
     (positions.c:48-88)."""
-    a, qmax = float(ha.a_hernq[i]), float(ha.mass_corr_fac[i])
-
     def draw(m):
-        dirs = sphere_dirs(gen, m)
-        sq = torch.sqrt(uniform(gen, m) * qmax)
-        cand = dirs * (a * sq / (1.0 - sq))[:, None]
-        ok = halo_containing_dm(cand + ha.d_com[i], ha, sub_first,
-                                boxsize) == i
-        return cand, ok
+        cand, ok = _draw_dm(gen, ha, _one(ha, i), m, sub_first, boxsize)
+        return cand[0], ok[0]
 
     return _rejection_fill(n, draw)
 
@@ -118,40 +151,109 @@ def sample_halo_gas(gen, ha: HaloArrays, i: int, n: int, boxsize: float,
                     cool_core=None):
     """Beta-model sampling by inverting the tabulated M(<r), with
     foreign-halo and out-of-box rejection (positions.c:90-133)."""
-    table = SplineTable(ha.minv_x[i], ha.minv_y[i], ha.minv_m2[i])
-    mass_gas = float(ha.mass_gas[i])
-
     def draw(m):
-        dirs = sphere_dirs(gen, m)
-        r = spline_eval(table, uniform(gen, m) * mass_gas)
-        cand = dirs * r[:, None]
-        owner = halo_containing_gas(cand + ha.d_com[i], ha, boxsize,
-                                    cool_core)
-        inside = (torch.abs(cand) <= boxsize / 2.0).all(dim=-1)
-        return cand, (owner == i) & inside
+        cand, ok = _draw_gas(gen, ha, _one(ha, i), m, boxsize, cool_core)
+        return cand[0], ok[0]
 
     return _rejection_fill(n, draw)
+
+
+def _size_classes(ns, max_ratio=8):
+    """Group halo target counts into classes whose largest member is at
+    most ``max_ratio`` x the smallest, so one padded batch a class wastes
+    a bounded share of its lanes.  Returns index arrays into ns."""
+    order = np.argsort(ns)
+    classes, cur = [], [order[0]]
+    for j in order[1:]:
+        if ns[j] <= max_ratio * ns[cur[0]]:
+            cur.append(j)
+        else:
+            classes.append(np.asarray(cur))
+            cur = [j]
+    classes.append(np.asarray(cur))
+    return classes
+
+
+def _batched_fill(gen, ha: HaloArrays, idxs, ns, kind, boxsize,
+                  sub_first=0, cool_core=None, p_est=0.92):
+    """Sample many small halos together, one size class at a time: a
+    round draws (H, m) candidates for the H halos of the class, tests
+    each lane against its own halo and compacts the accepted lanes per
+    halo in draw order (a cumsum along the lanes, then a scatter), with
+    one host sync a round for the whole class: the filled counts.  Lanes
+    are iid per halo and acceptance is per lane, so each halo draws from
+    the sequential sampler's distribution (positions.c:25-133).
+
+    idxs / ns: halo indices and fill targets.  Returns
+    {halo index: (pos (n, 3), n_filled)}."""
+    idxs, ns = np.asarray(idxs), np.asarray(ns)
+    dev = ha.d_com.device
+    results = {}
+    for cls in _size_classes(ns):
+        cidx, cns = idxs[cls], ns[cls]
+        H, n_max = len(cidx), int(cns.max())
+        hid = torch.as_tensor(cidx, dtype=torch.long, device=dev)
+        n_t = torch.as_tensor(cns, dtype=torch.long, device=dev)
+        # one spare row takes every lane that is not kept
+        out = torch.zeros((H * n_max + 1, 3), dtype=torch.float32,
+                          device=dev)
+        c = torch.zeros((H,), dtype=torch.long, device=dev)
+        filled, p = np.zeros(H, np.int64), np.full(H, p_est)
+        for _ in range(MAX_REJECT_ROUNDS):
+            need = (cns - filled) / np.maximum(p, 0.01) * 1.08
+            m = max(int(need.max()), 1024)
+            if kind == "dm":
+                cand, ok = _draw_dm(gen, ha, hid, m, sub_first, boxsize)
+            else:
+                cand, ok = _draw_gas(gen, ha, hid, m, boxsize, cool_core)
+            slot = c[:, None] + torch.cumsum(ok, dim=1) - 1
+            keep = ok & (slot < n_t[:, None])
+            row = torch.arange(H, device=dev)[:, None] * n_max
+            tgt = torch.where(keep, row + slot, H * n_max)
+            out.index_copy_(0, tgt.reshape(-1), cand.reshape(-1, 3))
+            c = torch.minimum(c + ok.sum(dim=1), n_t)
+            new_filled = c.cpu().numpy()  # the round's one sync
+            p = np.maximum((new_filled - filled) / m, 0.01)
+            filled = new_filled
+            if (filled >= cns).all():
+                break
+        out = out[:H * n_max].reshape(H, n_max, 3)
+        for j in range(H):
+            results[int(cidx[j])] = (out[j, :cns[j]], int(filled[j]))
+    return results
 
 
 def make_positions(gen, scene: Scene, ha: HaloArrays) -> Particles:
     """Sample all halos; returns Particles with centred per-halo
     coordinates (gas first, then DM, both grouped by halo,
-    setup.c:253-264)."""
-    if scene.sub_first < scene.nhalos:
-        raise NotImplementedError(
-            "substructure sampling is not ported yet")
+    setup.c:253-264).  Subhalos go through the batched sampler when there
+    are four or more; host halos keep the sequential one."""
     cfg = scene.config
     dev = ha.d_com.device
     cool_core = ((cfg.rho0_fac, cfg.rc_fac)
                  if cfg.double_beta_cool_cores else None)
     parts = empty_particles(scene.npart_gas, scene.npart_dm, dev)
+    batch = {"gas": {}, "dm": {}}
+    subs = range(scene.sub_first, scene.nhalos)
+    if len(subs) >= 4:
+        for kind in ("gas", "dm"):
+            idx = [i for i in subs
+                   if getattr(scene.halos[i], f"npart_{kind}")]
+            if idx:
+                batch[kind] = _batched_fill(
+                    gen, ha, idx,
+                    [getattr(scene.halos[i], f"npart_{kind}") for i in idx],
+                    kind, scene.boxsize, sub_first=scene.sub_first,
+                    cool_core=cool_core)
     gas, gas_halo, dm, dm_halo = [], [], [], []
     for i, h in enumerate(scene.halos):
         for n, kind, chunks, halos in ((h.npart_gas, "gas", gas, gas_halo),
                                        (h.npart_dm, "dm", dm, dm_halo)):
             if not n:
                 continue
-            if kind == "gas":
+            if i in batch[kind]:
+                pos, filled = batch[kind][i]
+            elif kind == "gas":
                 pos, filled = sample_halo_gas(gen, ha, i, n, scene.boxsize,
                                               cool_core)
             else:

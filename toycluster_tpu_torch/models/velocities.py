@@ -18,7 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import constants as const
 from ..ops.interp import SplineTable, batched_spline_eval, spline_eval
+from ..ops.kernels import wc2
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
 from .eddington import NTABLE, RMIN, build_distribution_function
@@ -183,22 +185,80 @@ def add_bulk_velocities(parts: Particles, ha: HaloArrays) -> Particles:
     return parts.replace(vel=vel + ha.bulk_vel[parts.halo.long()])
 
 
+def slow_substructure_bulk_velocities(scene: Scene, host_df, rng) -> list:
+    """SLOW_SUBSTRUCTURE: each subhalo orbits like a test particle of the
+    host's f(E) (velocities.c:500-565), host float64; returns the
+    per-halo bulk-velocity list with the subhalo entries replaced."""
+    bulks = [np.asarray(h.bulk_vel, np.float64) for h in scene.halos]
+    host = scene.halos[scene.config.sub_host]
+    for i in range(scene.sub_first, scene.nhalos):
+        h = scene.halos[i]
+        d = np.asarray(h.d_com) - np.asarray(host.d_com)
+        r = float(np.linalg.norm(d))
+        psi = float(host_df.psi(max(r, RMIN)))
+        vmax = (2 * psi) ** 0.5
+        qmax = 4 * const.PI * vmax**2 / h.mtotal * float(host_df(psi))
+        v = 0.0
+        for _ in range(90_000):
+            lower = qmax * rng.random()
+            v = vmax * rng.random()
+            e_tot = 0.5 * v * v - psi
+            q = 4 * const.PI * v**2 / h.mtotal * float(host_df(-e_tot))
+            if q >= lower:
+                break
+        v *= scene.config.zero_e_orbit_frac
+        ct = 2 * rng.random() - 1
+        ph = 2 * const.PI * rng.random()
+        st = (max(0.0, 1 - ct * ct)) ** 0.5
+        bulks[i] = v * np.array([st * np.cos(ph), st * np.sin(ph), ct])
+    return bulks
+
+
+def gas_bulk_velocities(pos_gas, gas_halo, bulk, d_com, sub_hh, sub_first,
+                        boxhalf):
+    """Gas bulk velocities (velocities.c:119-151): the halo's bulk
+    velocity, on subhalo gas tapered by the WC2 weight at hh = 1.1
+    R_sample_gas about the subhalo's centre (velocities.c:161-167)."""
+    wk = torch.ones_like(pos_gas[:, 0])
+    for i in range(sub_first, d_com.shape[0]):
+        hh = sub_hh[i]
+        norm = 21.0 / 2.0 / const.PI / hh ** 3
+        r = torch.linalg.vector_norm(pos_gas - (d_com[i] + boxhalf), dim=-1)
+        wk = torch.where(gas_halo == i, wc2(r, hh) / norm, wk)
+    return bulk[gas_halo.long()] * wk[:, None]
+
+
 def make_velocities(gen, scene: Scene, ha: HaloArrays, parts: Particles
                     ) -> Particles:
     """DM peculiar velocities per halo, then the bulk velocities (gas of
-    subhalos tapered by a WC2 weight) (velocities.c:38-159)."""
-    if scene.config.slow_substructure:
-        raise NotImplementedError("SLOW_SUBSTRUCTURE is not ported yet")
+    subhalos tapered by a WC2 weight) (velocities.c:38-159).  Under
+    SLOW_SUBSTRUCTURE the subhalo bulk velocities are replaced first;
+    the Shift_Origin add before them keeps the setup's."""
     parts = add_bulk_velocities(parts, ha)
     vel = parts.vel
     n_gas = scene.npart_gas
+    cfg = scene.config
     bulk = ha.bulk_vel
+    if (cfg.substructure and cfg.slow_substructure
+            and scene.nhalos > scene.sub_first
+            and any(h.npart_dm for h in scene.halos)):
+        h0 = scene.halos[0]
+        host_df = build_distribution_function(
+            mass_dm=h0.mass_dm, a_hernq=h0.a_hernq, G=scene.units.G,
+            mass_table=h0.mass_table, r_sample_gas=h0.r_sample_gas,
+            has_gas=h0.npart_gas > 0)
+        bulks = slow_substructure_bulk_velocities(
+            scene, host_df, np.random.default_rng(cfg.seed + 99))
+        bulk = torch.as_tensor(np.array(bulks), dtype=torch.float32,
+                               device=parts.device)
     if parts.n_total - n_gas:
         vel = torch.cat([vel[:n_gas],
                          sample_dm_velocities(gen, scene, ha, parts, bulk)])
     if n_gas:
-        # gas bulk velocities (velocities.c:119-151); subhalo gas would
-        # take a WC2 taper, and substructure is not ported
-        gas_halo = parts.halo[:n_gas].long()
-        vel = torch.cat([vel[:n_gas] + bulk[gas_halo], vel[n_gas:]])
+        sub_hh = [h.r_sample_gas * 1.1 for h in scene.halos]
+        vel = torch.cat([vel[:n_gas] + gas_bulk_velocities(
+            parts.pos[:n_gas], parts.halo[:n_gas], bulk, ha.d_com,
+            torch.as_tensor(sub_hh, dtype=torch.float32,
+                            device=parts.device),
+            scene.sub_first, scene.boxhalf), vel[n_gas:]])
     return parts.replace(vel=vel)

@@ -21,15 +21,22 @@ class SplineTable(NamedTuple):
 
 
 def spline_eval(table: SplineTable, xq):
-    """Natural-cubic-spline evaluation, clamped to the knot span."""
+    """Natural-cubic-spline evaluation, clamped to the knot span.  Knots
+    of shape (H, K) evaluate row by row, against queries (H, m)."""
     x, y, m2 = table
     i = torch.clamp(torch.searchsorted(x, xq.contiguous()) - 1, 0,
-                    x.shape[0] - 2)
-    h = x[i + 1] - x[i]
-    A = (x[i + 1] - xq) / h
+                    x.shape[-1] - 2)
+
+    def at(t, j):
+        return t[j] if t.dim() == 1 else torch.gather(t, -1, j)
+
+    x0, x1 = at(x, i), at(x, i + 1)
+    h = x1 - x0
+    A = (x1 - xq) / h
     B = 1.0 - A
-    return (A * y[i] + B * y[i + 1]
-            + ((A ** 3 - A) * m2[i] + (B ** 3 - B) * m2[i + 1]) * h * h / 6.0)
+    return (A * at(y, i) + B * at(y, i + 1)
+            + ((A ** 3 - A) * at(m2, i) + (B ** 3 - B) * at(m2, i + 1))
+            * h * h / 6.0)
 
 
 def flat_gather(tab, row, col):

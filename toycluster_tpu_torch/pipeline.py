@@ -6,6 +6,7 @@ are skipped at zero baryon fraction, main.c:50-63):
   setup -> positions -> ids -> shift origin -> [WVT relax -> SPH density
   -> B field -> reassign -> temperatures] -> velocities -> kinematics ->
   output
+with the substructure stage after the setup when ``cfg.substructure``.
 On CUDA every stage ends in ``torch.cuda.synchronize()`` before it is
 logged, so stage times are device times, not enqueue times.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .config import Config
@@ -31,17 +33,18 @@ def _barrier(device):
 
 
 def make_ics(cfg: Config, *, device, engine: str = "stream",
-             seed: Optional[int] = None, write: bool = True, log=stage_log):
+             seed: Optional[int] = None, write: bool = True, log=stage_log,
+             check: bool = False):
     """Run the full pipeline on ``device`` with the neighbour ``engine``
-    ("stream" or "classed", models/sph.py); returns (scene,
-    particles)."""
+    ("stream" or "classed", models/sph.py); returns (scene, particles).
+
+    check: audit the solved SPH densities on 512 gas lanes against
+      direct summation over every gas particle (``ops/brute.py``); a
+      worst relative error above 5e-3 raises RuntimeError.
+    """
     from .models.sph import check_engine
     check_engine(engine)
     device = torch.device(device)
-    if cfg.substructure:
-        raise NotImplementedError(
-            "substructure is not ported yet (the next port slice, after "
-            "the stream feeders; see ROADMAP.md)")
     t0 = time.perf_counter()
     scene = build_scene(cfg)
     log("setup", scene=scene)
@@ -51,6 +54,15 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
         tlog.report_cosmology(scene.cosmo, cfg.redshift)
         tlog.report_halo_setup(scene)
         tlog.report_kinematics(scene)
+
+    if cfg.substructure:
+        from .models.substructure import setup_substructure
+        scene = setup_substructure(scene, seed=cfg.seed + 7)
+        log("substructure", nhalos=scene.nhalos,
+            nsub=scene.nhalos - scene.sub_first)
+        if cfg.report_subhalos and log is stage_log:
+            from .utils import logging as tlog
+            tlog.report_subhalos(scene)  # substructure.c:74-103
 
     ha = halo_arrays_from_scene(scene, device)
     gen = torch.Generator(device=device)
@@ -87,6 +99,13 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
             _barrier(device)
             log("sph_quantities",
                 contract_frac=sph.last_contract_frac)
+        if check:
+            try:
+                _check_density(scene, parts, log)
+            except torch.cuda.OutOfMemoryError:
+                # the audit is advisory: an allocator failure after the
+                # relaxation must not end the run; a failed audit raises
+                log("check_density", skipped="out of device memory")
         if cfg.bfld_norm:
             parts = bfield.make_magnetic_field(scene, ha, parts, nstate,
                                                engine=engine)
@@ -116,3 +135,24 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
         write_scene_snapshot(cfg.output_file, scene, parts)
         log("output", path=cfg.output_file, dt=time.perf_counter() - t0)
     return scene, parts
+
+
+def _check_density(scene, parts, log, n_sample=512):
+    """Audit the neighbour engine against direct summation on evenly
+    spaced gas lanes; raises on disagreement beyond the float32 pair-sum
+    tolerance."""
+    from .ops.brute import density_at
+    n_gas = parts.n_gas
+    idx = torch.as_tensor(
+        np.linspace(0, n_gas - 1, min(n_sample, n_gas)).astype(np.int64),
+        device=parts.device)
+    rho_direct = density_at(parts.pos[idx], parts.hsml[idx],
+                            parts.pos[:n_gas], scene.mpart_gas,
+                            scene.boxsize, kernel=scene.config.sph_kernel,
+                            desnngb=scene.config.desnngb)
+    rel = torch.abs(rho_direct - parts.rho[idx]) / parts.rho[idx]
+    worst = float(rel.max())
+    log("check_density", n=len(idx), worst_rel_err=round(worst, 6))
+    if worst > 5e-3:
+        raise RuntimeError(
+            f"density check failed: worst rel err {worst:.2e}")
