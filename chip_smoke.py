@@ -49,9 +49,12 @@ parent).
    lanes of subhalo gas (direct summation, ops/brute.py) are within
    5e-3, that the gas of the subhalos past index 1 keeps |B| <= BMAX_SUB
    and that the snapshot reads back; it prints the halo count, the stage
-   times and the share of the per-halo loops and host tables in each,
-   the WVT record, per-row statistics of the first stream_wvt and
-   far-tail solve_density calls and the peak device memory.
+   times, the WVT record, per-row statistics of the first stream_wvt and
+   far-tail solve_density calls and the peak device memory.  A second
+   run of each scene, without the audit and the snapshot, synchronises
+   and times every call of the per-halo functions and prints their share
+   of each of its stages (the first run's times carry no such
+   instrumentation).
 6. Holds each kernel against its plain version again on the inputs of
    its first main-path call (solve_density and wvt_displacement: of the
    first block-list call, the 512-wide count class, and of the first
@@ -130,7 +133,8 @@ SUBSTRUCTURE_RUNS = (("stream", 10_000_000, False),
                      ("classed", 1_000_000, True))
 # the per-halo work of a substructure scene, by module and function:
 # Python loops over the halos (some 8 small device ops a halo) and host
-# tables built one a halo; the config-4 runs time every call
+# tables built one a halo; a second run of each config-4 scene times
+# every call
 HALO_LOOPS = (("positions", "halo_containing_gas"),
               ("positions", "halo_containing_dm"),
               ("sph", "global_density_model"),
@@ -990,12 +994,15 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     err_mean fell, the contract fraction is >= 0.999, the pipeline's
     density audit and a second one on subhalo gas are <= 5e-3, the gas of
     the subhalos past index 1 keeps |B| <= BMAX_SUB and the snapshot
-    reads back."""
+    reads back.  A second run of the same scene, without the audit and
+    the snapshot, times every call of the per-halo functions
+    (``timed_halo_loops``) for their share of each stage."""
     from toycluster_tpu_torch.config import parse_par_file
     from toycluster_tpu_torch.models.bfield import BMAX_SUB
     from toycluster_tpu_torch.ops.brute import density_at
     from toycluster_tpu_torch.pipeline import make_ics
     from toycluster_tpu_torch.scene import build_scene
+    from toycluster_tpu_torch.utils import logging as tlog
     tag = f"config-4 {ntotal:.0e} {engine}"
     out = Path(tmp) / f"IC_sub_{engine}"
     cfg = parse_par_file(ROOT / PKG / "data" / "cluster.par",
@@ -1005,13 +1012,9 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    book, restore = timed_halo_loops(torch)
-    try:
-        (scene, parts), launches, totals, recorded, wall, t0 = counted(
-            torch, sp, cp, lambda: make_ics(cfg, device="cuda",
-                                            engine=engine, check=True))
-    finally:
-        restore()
+    (scene, parts), launches, totals, recorded, wall, t0 = counted(
+        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
+                                        check=True))
     peak = torch.cuda.max_memory_allocated()
     nsub = scene.nhalos - scene.sub_first
     say(f"[{tag}] {scene.nhalos} halos ({nsub} subhalos from index "
@@ -1037,7 +1040,6 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     if engine == "classed" and totals["stream_wvt"] != 0:
         fail(f"the {tag} run launched stream_wvt")
     recs = report_run(tag, t0)
-    report_halo_loops(tag, book, recs, t0)
     first_call_stats(torch, sp, cp, tag, recorded)
     del recorded
     audit = [r for r in recs if r["stage"] == "check_density"]
@@ -1065,6 +1067,19 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
         f"({mem0 / 2**30:.4f} GiB held before the run)")
     del parts
     check_snapshot(out, ntotal)
+    # the per-halo loops' share of each stage, from a second run whose
+    # per-halo calls are each synchronised (its times are not the run's)
+    book, restore = timed_halo_loops(torch)
+    try:
+        _, _, _, recorded, wall, t0 = counted(
+            torch, sp, cp, lambda: make_ics(cfg, device="cuda",
+                                            engine=engine, write=False))
+    finally:
+        restore()
+    del recorded
+    say(f"[{tag}] instrumented run (every per-halo call synchronised): "
+        f"wall {wall:.3f} s")
+    report_halo_loops(f"{tag} instrumented", book, list(tlog.METRICS), t0)
 
 
 def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):

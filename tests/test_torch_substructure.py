@@ -200,9 +200,9 @@ def _radii(pos, halo, n_gas, i, kind, d_com, boxhalf):
 
 @pytest.mark.parametrize("kind", ["dm", "gas"])
 def test_batched_radii_match_jax_and_sequential(sub60, kind):
-    """Per subhalo: the port's batched radii against the JAX make_positions
-    (its batched sampler) and against the port's sequential sampler,
-    two-sample KS p > 1e-3."""
+    """Per subhalo: the port's radii, drawn with the subhalos' size class,
+    against the JAX make_positions (its batched sampler) and against the
+    port's sampler with the subhalo drawn alone, two-sample KS p > 1e-3."""
     jscene, _, scene, ha, jpos_box, jhalo = sub60
     gen = torch.Generator().manual_seed(7)
     parts = tpos.shift_origin(tpos.make_positions(gen, scene, ha), ha,
@@ -216,15 +216,13 @@ def test_batched_radii_match_jax_and_sequential(sub60, kind):
         r_j = _radii(jpos_box, jhalo.copy(), scene.npart_gas, i, kind,
                      h.d_com, scene.boxhalf)
         assert len(r_t) == len(r_j) == n
-        if kind == "dm":
-            seq, filled = tpos.sample_halo_dm(gen, ha, i, n, scene.sub_first,
-                                              scene.boxsize)
-        else:
-            seq, filled = tpos.sample_halo_gas(gen, ha, i, n, scene.boxsize)
+        alone, filled = tpos._batched_fill(gen, ha, [i], [n], kind,
+                                           scene.boxsize,
+                                           sub_first=scene.sub_first)[i]
         assert filled == n
-        r_s = torch.linalg.vector_norm(seq, dim=-1).numpy()
+        r_s = torch.linalg.vector_norm(alone, dim=-1).numpy()
         assert stats.ks_2samp(r_t, r_j).pvalue > 1e-3, (i, "jax")
-        assert stats.ks_2samp(r_t, r_s).pvalue > 1e-3, (i, "sequential")
+        assert stats.ks_2samp(r_t, r_s).pvalue > 1e-3, (i, "alone")
 
 
 def test_make_positions_orders_by_halo(sub60):
@@ -516,14 +514,16 @@ def test_wvt_loop_on_three_halos_matches_jax(e2e):
 
 
 def test_cli_classed_slow_substructure(tmp_path):
-    """The CLI with engine=classed and SLOW_SUBSTRUCTURE writes a
-    snapshot of finite blocks that the JAX reader reads."""
+    """The CLI with engine=classed and SLOW_SUBSTRUCTURE (one WVT
+    iteration) writes a snapshot of finite blocks that the JAX reader
+    reads."""
     out = tmp_path / "ic_classed"
-    args = [f"{k}={v}" for k, v in E2E.items()]
+    args = [f"{k}={v}" for k, v in dict(E2E, wvt_max_iter=1).items()]
     assert cli.main([PAR, *args, "slow_substructure=true", "device=cpu",
                      "engine=classed", f"output_file={out}"]) == 0
     snap = read_snapshot(str(out))
-    assert snap["header"].npart[0] + snap["header"].npart[1] == 4000
+    assert snap["header"].npart[0] + snap["header"].npart[1] == \
+        E2E["ntotal"]
     for k in ("pos", "vel", "u", "rho", "hsml", "bfld", "rho_model"):
         assert np.isfinite(snap[k]).all(), k
     assert (snap["rho"] > 0).all()

@@ -5,11 +5,11 @@ per-particle rejection loops (positions.c:25-133) become oversampled
 batch rejection: each round draws one batch of iid candidates from an
 explicit ``torch.Generator``, tests acceptance per lane and keeps the
 accepted lanes in draw order, so the kept prefix follows exactly the
-reference's conditional distribution.  Subhalos (four or more) are drawn
-together by size class (``_batched_fill``): one round draws candidates
-for every halo of the class and costs one host sync.  Positions are
-sampled around each halo's centre; ``shift_origin`` moves them into the
-periodic box (setup.c:427-500).
+reference's conditional distribution.  Halos are drawn together by size
+class (``_batched_fill``; each host halo alone): one round draws
+candidates for every halo of the class and costs one host sync.
+Positions are sampled around each halo's centre; ``shift_origin`` moves
+them into the periodic box (setup.c:427-500).
 """
 
 from __future__ import annotations
@@ -41,14 +41,18 @@ def sphere_dirs(gen, n):
                         cos_t], dim=-1)
 
 
-def halo_containing_gas(pos_abs, ha: HaloArrays, boxsize, cool_core=None):
+def halo_containing_gas(pos_abs, ha: HaloArrays, boxsize, cool_core=None,
+                        stripped=None):
     """The halo owning a gas particle at absolute centred coordinates:
     the largest beta-model density among non-stripped halos with
-    r < R_sample_gas (positions.c:363-385); -1 outside the box."""
+    r < R_sample_gas (positions.c:363-385); -1 outside the box.
+    ``stripped``: ``ha.is_stripped`` as a host list, when the caller
+    already holds it (it costs a device-to-host copy)."""
     n = pos_abs.shape[0]
     best = torch.zeros((n,), dtype=torch.int32, device=pos_abs.device)
     rho_max = torch.zeros((n,), dtype=pos_abs.dtype, device=pos_abs.device)
-    stripped = ha.is_stripped.tolist()
+    if stripped is None:
+        stripped = ha.is_stripped.tolist()
     for j in range(ha.n_halos):
         r = torch.linalg.vector_norm(pos_abs - ha.d_com[j], dim=-1)
         rho = gas_density(r, ha, j, cool_core)
@@ -78,27 +82,6 @@ def halo_containing_dm(pos_abs, ha: HaloArrays, sub_first, boxsize):
     return torch.where(oob, torch.full_like(best, -1), best)
 
 
-def _rejection_fill(n, draw, p_est=0.92):
-    """Draw rounds of ``draw(m) -> (cand (m, 3), ok (m,))`` until n lanes
-    are accepted; round sizes follow the measured acceptance rate.
-    Returns (pos (n, 3), n_filled)."""
-    kept, filled = [], 0
-    for _ in range(MAX_REJECT_ROUNDS):
-        m = max(int((n - filled) / max(p_est, 0.01) * 1.08), 1024)
-        cand, ok = draw(m)
-        acc = cand[ok]
-        p_est = max(acc.shape[0] / m, 0.01)
-        acc = acc[:n - filled]
-        kept.append(acc)
-        filled += acc.shape[0]
-        if filled >= n:
-            break
-    pos = torch.cat(kept)
-    if filled < n:
-        pos = torch.cat([pos, pos.new_zeros((n - filled, 3))])
-    return pos, filled
-
-
 def _draw_dm(gen, ha: HaloArrays, hid, m: int, sub_first: int,
              boxsize: float):
     """m Hernquist inverse-CDF candidates for each halo of ``hid`` (H,)
@@ -116,7 +99,7 @@ def _draw_dm(gen, ha: HaloArrays, hid, m: int, sub_first: int,
 
 
 def _draw_gas(gen, ha: HaloArrays, hid, m: int, boxsize: float,
-              cool_core=None):
+              cool_core, stripped):
     """m beta-model candidates for each halo of ``hid`` by inverting its
     tabulated M(<r) (positions.c:105-106), accepted where the halo owns
     them inside the box: (cand (H, m, 3), ok (H, m))."""
@@ -127,35 +110,9 @@ def _draw_gas(gen, ha: HaloArrays, hid, m: int, boxsize: float,
     cand = dirs * spline_eval(table, mass)[..., None]
     owner = halo_containing_gas(
         (cand + ha.d_com[hid][:, None]).reshape(-1, 3), ha, boxsize,
-        cool_core).reshape(H, m)
+        cool_core, stripped).reshape(H, m)
     inside = (torch.abs(cand) <= boxsize / 2.0).all(dim=-1)
     return cand, (owner == hid[:, None]) & inside
-
-
-def _one(ha, i):
-    return torch.tensor([i], dtype=torch.long, device=ha.d_com.device)
-
-
-def sample_halo_dm(gen, ha: HaloArrays, i: int, n: int, sub_first: int,
-                   boxsize: float):
-    """Hernquist inverse-CDF sampling with foreign-halo rejection
-    (positions.c:48-88)."""
-    def draw(m):
-        cand, ok = _draw_dm(gen, ha, _one(ha, i), m, sub_first, boxsize)
-        return cand[0], ok[0]
-
-    return _rejection_fill(n, draw)
-
-
-def sample_halo_gas(gen, ha: HaloArrays, i: int, n: int, boxsize: float,
-                    cool_core=None):
-    """Beta-model sampling by inverting the tabulated M(<r), with
-    foreign-halo and out-of-box rejection (positions.c:90-133)."""
-    def draw(m):
-        cand, ok = _draw_gas(gen, ha, _one(ha, i), m, boxsize, cool_core)
-        return cand[0], ok[0]
-
-    return _rejection_fill(n, draw)
 
 
 def _size_classes(ns, max_ratio=8):
@@ -176,18 +133,20 @@ def _size_classes(ns, max_ratio=8):
 
 def _batched_fill(gen, ha: HaloArrays, idxs, ns, kind, boxsize,
                   sub_first=0, cool_core=None, p_est=0.92):
-    """Sample many small halos together, one size class at a time: a
-    round draws (H, m) candidates for the H halos of the class, tests
-    each lane against its own halo and compacts the accepted lanes per
-    halo in draw order (a cumsum along the lanes, then a scatter), with
-    one host sync a round for the whole class: the filled counts.  Lanes
-    are iid per halo and acceptance is per lane, so each halo draws from
-    the sequential sampler's distribution (positions.c:25-133).
+    """Oversampled batch rejection (positions.c:25-133) for the halos
+    ``idxs`` with fill targets ``ns``, one size class at a time: a round
+    draws (H, m) candidates for the H halos of the class, tests each lane
+    against its own halo and compacts the accepted lanes per halo in draw
+    order (a cumsum along the lanes, then a scatter), with one host sync a
+    round for the whole class: the filled counts.  Lanes are iid per halo
+    and acceptance is per lane, so the kept prefix follows the
+    reference's conditional distribution; round sizes follow the
+    measured acceptance rate (usually one round suffices).
 
-    idxs / ns: halo indices and fill targets.  Returns
-    {halo index: (pos (n, 3), n_filled)}."""
+    Returns {halo index: (pos (n, 3), n_filled)}."""
     idxs, ns = np.asarray(idxs), np.asarray(ns)
     dev = ha.d_com.device
+    stripped = ha.is_stripped.tolist() if kind == "gas" else None
     results = {}
     for cls in _size_classes(ns):
         cidx, cns = idxs[cls], ns[cls]
@@ -205,7 +164,8 @@ def _batched_fill(gen, ha: HaloArrays, idxs, ns, kind, boxsize,
             if kind == "dm":
                 cand, ok = _draw_dm(gen, ha, hid, m, sub_first, boxsize)
             else:
-                cand, ok = _draw_gas(gen, ha, hid, m, boxsize, cool_core)
+                cand, ok = _draw_gas(gen, ha, hid, m, boxsize, cool_core,
+                                     stripped)
             slot = c[:, None] + torch.cumsum(ok, dim=1) - 1
             keep = ok & (slot < n_t[:, None])
             row = torch.arange(H, device=dev)[:, None] * n_max
@@ -226,39 +186,33 @@ def _batched_fill(gen, ha: HaloArrays, idxs, ns, kind, boxsize,
 def make_positions(gen, scene: Scene, ha: HaloArrays) -> Particles:
     """Sample all halos; returns Particles with centred per-halo
     coordinates (gas first, then DM, both grouped by halo,
-    setup.c:253-264).  Subhalos go through the batched sampler when there
-    are four or more; host halos keep the sequential one."""
+    setup.c:253-264).  The subhalos are drawn together by size class,
+    gas then DM; then each host halo alone, gas then DM (in one class
+    the smaller host would draw the larger one's rounds)."""
     cfg = scene.config
     dev = ha.d_com.device
     cool_core = ((cfg.rho0_fac, cfg.rc_fac)
                  if cfg.double_beta_cool_cores else None)
     parts = empty_particles(scene.npart_gas, scene.npart_dm, dev)
-    batch = {"gas": {}, "dm": {}}
-    subs = range(scene.sub_first, scene.nhalos)
-    if len(subs) >= 4:
-        for kind in ("gas", "dm"):
-            idx = [i for i in subs
-                   if getattr(scene.halos[i], f"npart_{kind}")]
-            if idx:
-                batch[kind] = _batched_fill(
-                    gen, ha, idx,
-                    [getattr(scene.halos[i], f"npart_{kind}") for i in idx],
-                    kind, scene.boxsize, sub_first=scene.sub_first,
-                    cool_core=cool_core)
+    subs = list(range(scene.sub_first, scene.nhalos))
+    hosts = range(min(scene.sub_first, scene.nhalos))
+    drawn = {"gas": {}, "dm": {}}
+    for kind, idx in ([("gas", subs), ("dm", subs)]
+                      + [(kind, [i]) for i in hosts for kind in ("gas", "dm")]):
+        idx = [i for i in idx if getattr(scene.halos[i], f"npart_{kind}")]
+        if idx:
+            drawn[kind].update(_batched_fill(
+                gen, ha, idx,
+                [getattr(scene.halos[i], f"npart_{kind}") for i in idx],
+                kind, scene.boxsize, sub_first=scene.sub_first,
+                cool_core=cool_core))
     gas, gas_halo, dm, dm_halo = [], [], [], []
     for i, h in enumerate(scene.halos):
         for n, kind, chunks, halos in ((h.npart_gas, "gas", gas, gas_halo),
                                        (h.npart_dm, "dm", dm, dm_halo)):
             if not n:
                 continue
-            if i in batch[kind]:
-                pos, filled = batch[kind][i]
-            elif kind == "gas":
-                pos, filled = sample_halo_gas(gen, ha, i, n, scene.boxsize,
-                                              cool_core)
-            else:
-                pos, filled = sample_halo_dm(gen, ha, i, n, scene.sub_first,
-                                             scene.boxsize)
+            pos, filled = drawn[kind][i]
             if filled < n:
                 warnings.warn(
                     f"halo {i} {kind} sampling under-filled after bounded "
