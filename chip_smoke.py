@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 With ``--parent-csrc DIR`` (the csrc directory of another tree whose
 fused_wvt and stream_curl kernels have the one-CTA-of-128-threads C
-interface) step 6 also builds those two kernels and times them on the same
+interface) step 7 also builds those two kernels and times them on the same
 recorded inputs, in turns with this tree's (parent, change, change,
 parent).
 
@@ -55,7 +55,24 @@ parent).
    and times every call of the per-halo functions and prints their share
    of each of its stages (the first run's times carry no such
    instrumentation).
-6. Holds each kernel against its plain version again on the inputs of
+6. Two large runs of the config-4 preset (``run_configs.PRESETS[4]``),
+   counted without recording any kernel's inputs, each printing its
+   stage times with the allocator's mem_gib / peak_gib, each WVT build's
+   time and width, the wall between WVT iterations and its phase's wall
+   time.  A: at config 5's size,
+   Ntotal 1e8 (5e7 gas), on the stream engine through
+   ``make_ics(check=True, wvt_checkpoint=...)``, with the checks of step
+   5, and the checkpoint must hold the last iteration of the form 16 k -
+   1 the run moved past; prints each kernel call's device time (CUDA
+   events around the wrapper), the checkpoint saves' times and the peak
+   device memory per gas particle.  B: at Ntotal 1e7 on engine=classed,
+   a run stopped at wvt_max_iter 16 must leave it = 15 in a fresh
+   checkpoint; a second run (default wvt_max_iter, the audit,
+   ``profile_dir``) must resume at it = 16 with the saved step, pass step
+   5's checks but the fall of err_mean, end at an err_mean no higher than
+   the file's err_last, and leave a torch.profiler trace that parses and
+   names fused_wvt or solve_density.
+7. Holds each kernel against its plain version again on the inputs of
    its first main-path call (solve_density and wvt_displacement: of the
    first block-list call, the 512-wide count class, and of the first
    far-tail call, as records of their own; with the checks of step 3),
@@ -131,6 +148,10 @@ EXTRA_KEYS = ("ms_unhoisted", "parent_ms", "ms_unpruned", "ms_cluster1",
 # the config-4 scenes of step 5: (engine, ntotal, SLOW_SUBSTRUCTURE)
 SUBSTRUCTURE_RUNS = (("stream", 10_000_000, False),
                      ("classed", 1_000_000, True))
+# step 6: the config-4 preset at config 5's size (stream engine), and the
+# checkpoint -> resume pair (engine=classed)
+LARGE_NTOTAL = 100_000_000
+RESUME_NTOTAL = 10_000_000
 # the per-halo work of a substructure scene, by module and function:
 # Python loops over the halos (some 8 small device ops a halo) and host
 # tables built one a halo; a second run of each config-4 scene times
@@ -762,15 +783,17 @@ def check_snapshot(out, n_total):
     say(f"snapshot: {snap['pos'].shape[0]} particles, {n_gas} gas, finite")
 
 
-def counted(torch, sp, cp, drive):
+def counted(torch, sp, cp, drive, record=True):
     """``drive()`` with every launch counter and the stage log's records
     set to 0 just before; the kernel wrappers are patched by name to
-    record each kernel's first call's inputs for step 6 (the stream
-    engine's stand-alone density solve, do_disp=False, is not recorded)
+    record each kernel's first call's inputs for step 7 (the stream
+    engine's stand-alone density solve, do_disp=False, is not recorded;
+    with ``record=False``, which keeps a large run's inputs from
+    outliving it, CUDA events time each such call on the device instead)
     and to count block-list stream_curl launches and each list mode of
     solve_density and wvt_displacement apart.  Returns (drive's result,
-    launches by record name, launches by kernel, recorded inputs, wall s,
-    start time)."""
+    launches by record name, launches by kernel, recorded inputs (or the
+    device ms of each call by record name), wall s, start time)."""
     from toycluster_tpu_torch.models import bfield, sph, wvt
     from toycluster_tpu_torch.utils import logging as tlog
 
@@ -779,11 +802,18 @@ def counted(torch, sp, cp, drive):
     def recorder(fn, name_of):
         def call(*args, **kw):
             n0 = fn.launches
-            out = fn(*args, **kw)
             name = name_of(kw)
+            if name is not None and not record:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+                ev[0].record()
+            out = fn(*args, **kw)
             if name is not None:
                 by_name[name] += fn.launches - n0
-                recorded.setdefault(name, (args, kw))
+                if record:
+                    recorded.setdefault(name, (args, kw))
+                else:
+                    ev[1].record()
+                    recorded.setdefault(name, []).append(ev)
             return out
         return call
 
@@ -822,6 +852,10 @@ def counted(torch, sp, cp, drive):
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     wall = time.perf_counter() - t0
+    if not record:
+        torch.cuda.synchronize()
+        recorded = {name: [s.elapsed_time(e) for s, e in evs]
+                    for name, evs in recorded.items()}
     totals = {k.__name__: k.launches for k in kernels}
     launches = dict(totals)
     # the count-class kernels' launches per list mode
@@ -836,26 +870,36 @@ def counted(torch, sp, cp, drive):
     return result, launches, totals, recorded, wall, t0
 
 
-def report_run(tag, t0):
-    """Print the stage times, the WVT record and the neighbour contract of
-    the run whose stage-log records ``tlog.METRICS`` holds; fail unless
-    err_mean fell and the contract fraction is >= 0.999.  Returns the
-    records."""
+def report_run(tag, t0, fell=True):
+    """Print the stage times (and device memory where the record has it),
+    the WVT record and the neighbour contract of the run whose stage-log
+    records ``tlog.METRICS`` holds; fail unless the contract fraction is
+    >= 0.999 and, with ``fell``, err_mean fell to below 0.6 of its first
+    value.  Returns the records."""
     from toycluster_tpu_torch.models import sph
     from toycluster_tpu_torch.utils import logging as tlog
-    for stage, t, dt in stage_spans(tlog.METRICS, t0):
-        say(f"[{tag}] stage {stage:<16} ends at {t:9.3f} s (+{dt:.3f} s)")
+    for stage, t, dt, rec in stage_spans(tlog.METRICS, t0):
+        mem = (f"; mem_gib {rec['mem_gib']:.4f} peak_gib "
+               f"{rec['peak_gib']:.4f}" if "mem_gib" in rec else "")
+        say(f"[{tag}] stage {stage:<16} ends at {t:9.3f} s (+{dt:.3f} s)"
+            f"{mem}")
     errs = [r["err_mean"] for r in tlog.METRICS if r["stage"] == "wvt"]
     done = [r for r in tlog.METRICS if r["stage"] == "wvt_done"]
     builds = [r for r in tlog.METRICS if r["stage"] == "wvt_build"]
     retries = [r for r in tlog.METRICS if r["stage"] == "wvt_retry"]
+    refreshes = [r for r in tlog.METRICS if r["stage"] == "wvt_refresh"]
+    stamps = [r["t"] for r in tlog.METRICS if r["stage"] == "wvt"]
     say(f"[{tag}] wvt err_mean trajectory ({len(errs)} iterations): "
-        f"{errs}")
+        f"{errs}; wall between iterations, s "
+        f"{[round(b - a, 3) for a, b in zip(stamps, stamps[1:])]}")
     say(f"[{tag}] wvt builds {len(builds)}, far-tail rows per build "
         f"{[r.get('tail_rows', 0) for r in builds]}, list widths "
-        f"{[r['max_cand'] for r in builds]}; retries "
+        f"{[r['max_cand'] for r in builds]}, seconds "
+        f"{[round(r['seconds'], 4) for r in builds]}; list refreshes (it, "
+        f"width, s) {[(r['it'], r['max_cand'], round(r['seconds'], 4))
+                      for r in refreshes]}; retries "
         f"{[(r['it'], r['n_sat']) for r in retries]}")
-    if len(errs) < 2 or not errs[-1] < 0.6 * errs[0]:
+    if fell and (len(errs) < 2 or not errs[-1] < 0.6 * errs[0]):
         fail(f"err_mean did not fall: {errs}")
     say(f"[{tag}] wvt: {done[0]['iterations']} iterations in "
         f"{done[0]['seconds']:.3f} s = "
@@ -868,14 +912,15 @@ def report_run(tag, t0):
 
 
 def stage_spans(records, t0):
-    """(stage, end, seconds) for each stage-log record of a run that
-    began at t0; the WVT loop's own records fold into its wvt_done."""
+    """(stage, end, seconds, record) for each stage-log record of a run
+    that began at t0; the WVT loop's own records fold into its
+    wvt_done."""
     from toycluster_tpu_torch.utils import logging as tlog
     prev = t0 - tlog._T0
     for rec in records:
         if rec["stage"].startswith("wvt") and rec["stage"] != "wvt_done":
             continue
-        yield rec["stage"], rec["t"], rec["t"] - prev
+        yield rec["stage"], rec["t"], rec["t"] - prev, rec
         prev = rec["t"]
 
 
@@ -912,7 +957,7 @@ def report_halo_loops(tag, book, records, t0):
     """Print, for each stage, the time of each per-halo function in it
     and its share of the stage."""
     times = Counter()
-    for stage, _, dt in stage_spans(records, t0):
+    for stage, _, dt, _ in stage_spans(records, t0):
         times[stage] += dt
     per_stage = {}
     for (i, name), (calls, sec) in book.items():
@@ -984,43 +1029,31 @@ def run_main_path(torch, sp, cp, tmp, engine):
     return launches, recorded
 
 
-def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
-    """The config-4 scene (configs/run_configs.py:29-30 as overrides of
-    the repository's par: mass ratio 1/3, Giocoli substructure, the
-    subhalo tables) at ``ntotal`` through ``make_ics(device="cuda",
-    engine=engine, check=True)``, counted (``counted``), with
-    SLOW_SUBSTRUCTURE when ``slow``.  Fails unless the scene has
-    subhalos, the particle budgets hold, the engine's kernels launched,
-    err_mean fell, the contract fraction is >= 0.999, the pipeline's
-    density audit and a second one on subhalo gas are <= 5e-3, the gas of
-    the subhalos past index 1 keeps |B| <= BMAX_SUB and the snapshot
-    reads back.  A second run of the same scene, without the audit and
-    the snapshot, times every call of the per-halo functions
-    (``timed_halo_loops``) for their share of each stage."""
+def config4(ntotal, out, **over):
+    """The config-4 preset (``run_configs.PRESETS[4]``, the JAX package's
+    configs/run_configs.py:29-30, as overrides of the repository's par:
+    mass ratio 1/3, Giocoli substructure) at ``ntotal``."""
     from toycluster_tpu_torch.config import parse_par_file
+    from toycluster_tpu_torch.run_configs import PRESETS
+    return parse_par_file(ROOT / PKG / "data" / "cluster.par",
+                          **{**PRESETS[4], "ntotal": ntotal,
+                             "output_file": str(out), **over})
+
+
+def check_config4(torch, tag, cfg, engine, scene, parts, totals, t0,
+                  fell=True):
+    """The checks of a config-4 run: subhalos, particle budgets, the
+    engine's kernels launched (``totals``), ``report_run`` (contract
+    fraction, err_mean), the pipeline's density audit and a second one on
+    512 lanes of subhalo gas <= 5e-3, |B| <= BMAX_SUB on the gas of the
+    subhalos past index 1.  Returns the stage-log records."""
     from toycluster_tpu_torch.models.bfield import BMAX_SUB
     from toycluster_tpu_torch.ops.brute import density_at
-    from toycluster_tpu_torch.pipeline import make_ics
     from toycluster_tpu_torch.scene import build_scene
-    from toycluster_tpu_torch.utils import logging as tlog
-    tag = f"config-4 {ntotal:.0e} {engine}"
-    out = Path(tmp) / f"IC_sub_{engine}"
-    cfg = parse_par_file(ROOT / PKG / "data" / "cluster.par",
-                         ntotal=ntotal, mass_ratio=1.0 / 3.0,
-                         substructure=True, report_subhalos=True,
-                         slow_substructure=slow, output_file=str(out))
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    (scene, parts), launches, totals, recorded, wall, t0 = counted(
-        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
-                                        check=True))
-    peak = torch.cuda.max_memory_allocated()
     nsub = scene.nhalos - scene.sub_first
     say(f"[{tag}] {scene.nhalos} halos ({nsub} subhalos from index "
         f"{scene.sub_first}), {scene.npart_gas} gas, {scene.npart_dm} DM, "
-        f"subhalo gas {sum(h.npart_gas for h in scene.halos[scene.sub_first:])}"
-        f"; slow_substructure={slow}; wall {wall:.3f} s; launches {launches}")
+        f"subhalo gas {sum(h.npart_gas for h in scene.halos[scene.sub_first:])}")
     if not nsub > 0:
         fail(f"{tag}: no subhalos")
     base = build_scene(cfg)
@@ -1039,9 +1072,7 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
             fail(f"the {tag} run launched {name} no time")
     if engine == "classed" and totals["stream_wvt"] != 0:
         fail(f"the {tag} run launched stream_wvt")
-    recs = report_run(tag, t0)
-    first_call_stats(torch, sp, cp, tag, recorded)
-    del recorded
+    recs = report_run(tag, t0, fell)
     audit = [r for r in recs if r["stage"] == "check_density"]
     if not audit or not audit[0].get("worst_rel_err", 1.0) <= 5e-3:
         fail(f"{tag}: check_density {audit}")
@@ -1063,6 +1094,34 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     say(f"[{tag}] max |B| on the gas of halos > 1: "
         f"{float(b.max()) if b.numel() else 0.0:.6g} G "
         f"(BMAX_SUB {BMAX_SUB:g}) over {b.numel()} particles")
+    return recs
+
+
+def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
+    """The config-4 scene at ``ntotal`` through ``make_ics(device="cuda",
+    engine=engine, check=True)``, counted (``counted``), with
+    SLOW_SUBSTRUCTURE when ``slow``, held to ``check_config4``; the
+    snapshot must read back.  A second run of the same scene, without
+    the audit and the snapshot, times every call of the per-halo
+    functions (``timed_halo_loops``) for their share of each stage."""
+    from toycluster_tpu_torch.pipeline import make_ics
+    from toycluster_tpu_torch.utils import logging as tlog
+    tag = f"config-4 {ntotal:.0e} {engine}"
+    out = Path(tmp) / f"IC_sub_{engine}"
+    cfg = config4(ntotal, out, report_subhalos=True,
+                  slow_substructure=slow)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (scene, parts), launches, totals, recorded, wall, t0 = counted(
+        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
+                                        check=True))
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{tag}] slow_substructure={slow}; wall {wall:.3f} s; launches "
+        f"{launches}")
+    check_config4(torch, tag, cfg, engine, scene, parts, totals, t0)
+    first_call_stats(torch, sp, cp, tag, recorded)
+    del recorded
     say(f"[{tag}] peak device memory {peak / 2**30:.4f} GiB "
         f"({mem0 / 2**30:.4f} GiB held before the run)")
     del parts
@@ -1080,6 +1139,130 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     say(f"[{tag}] instrumented run (every per-halo call synchronised): "
         f"wall {wall:.3f} s")
     report_halo_loops(f"{tag} instrumented", book, list(tlog.METRICS), t0)
+
+
+def read_checkpoint(path):
+    """(it, step, err_last) of a WVT checkpoint; fails if it is absent."""
+    import numpy as np
+    if not Path(path).is_file():
+        fail(f"no WVT checkpoint at {path}")
+    with np.load(path) as ck:
+        return int(ck["it"]), float(ck["step"]), float(ck["err_last"])
+
+
+def saved_it(recs):
+    """The iteration whose end the last checkpoint of a run should hold:
+    the last one past which the run moved the gas with (it + 1) a
+    multiple of 16 (a stop leaves its iteration unmoved)."""
+    its = [r["it"] for r in recs if r["stage"] == "wvt"]
+    if any(r.get("reused") for r in recs if r["stage"] == "sph_quantities"):
+        its = its[:-1]
+    return max((i for i in its if (i + 1) % 16 == 0), default=None)
+
+
+def run_large(torch, sp, cp, tmp):
+    """Phase A: the config-4 preset at config 5's size (Ntotal 1e8, 5e7
+    gas; config 5's own preset needs par tags the repository lacks)
+    through ``make_ics(device="cuda", engine="stream", check=True,
+    wvt_checkpoint=...)``, counted without recording any kernel's inputs
+    (CUDA events time each kernel call instead), held to
+    ``check_config4``; the checkpoint holds the iteration ``saved_it``
+    names and the snapshot reads back.  Prints each stage's time and
+    device memory, each build's time and the checkpoint saves' times."""
+    import shutil
+    from toycluster_tpu_torch.pipeline import make_ics
+    ntotal = LARGE_NTOTAL
+    tag = f"config-4 {ntotal:.0e} stream"
+    out = Path(tmp) / "IC_large"
+    ck = Path(tmp) / "wvt_large.npz"
+    cfg = config4(ntotal, out)
+    say(f"[{tag}] free space for the snapshot in {tmp}: "
+        f"{shutil.disk_usage(tmp).free / 2**30:.3f} GiB")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    (scene, parts), launches, totals, dev_ms, wall, t0 = counted(
+        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine="stream",
+                                        check=True, wvt_checkpoint=str(ck)),
+        record=False)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{tag}] wall {wall:.3f} s; launches {launches}")
+    for name, ms in dev_ms.items():
+        say(f"[{tag}] {name}: device ms a call (CUDA events around the "
+            f"wrapper) {[round(m, 3) for m in ms]}")
+    recs = check_config4(torch, tag, cfg, "stream", scene, parts, totals, t0)
+    saves = [r for r in recs if r["stage"] == "wvt_checkpoint"]
+    say(f"[{tag}] checkpoint saves (it, s): "
+        f"{[(r['it'], round(r['seconds'], 4)) for r in saves]}")
+    it, step, _ = read_checkpoint(ck)
+    if saved_it(recs) is None or it != saved_it(recs):
+        fail(f"{tag}: checkpoint holds it = {it}, expected {saved_it(recs)}")
+    say(f"[{tag}] checkpoint holds it = {it}, step = {step}")
+    say(f"[{tag}] peak device memory {peak / 2**30:.4f} GiB "
+        f"({mem0 / 2**30:.4f} GiB held before the run), "
+        f"{peak / scene.npart_gas:.1f} B a gas particle")
+    del parts
+    check_snapshot(out, ntotal)
+    out.unlink()
+    ck.unlink()
+
+
+def run_resume(torch, sp, cp, tmp):
+    """Phase B: WVT checkpoint -> resume on engine=classed, config 4 at
+    Ntotal 1e7.  Run 1 stops at wvt_max_iter 16 and must leave it = 15
+    in a fresh checkpoint; run 2, the default wvt_max_iter with the same
+    checkpoint, the density audit and ``profile_dir``, must resume at
+    it = 16 with the saved step, pass ``check_config4`` but for the fall
+    of err_mean, end with err_mean <= the file's err_last, and write a
+    trace that parses and names a count-class kernel."""
+    from toycluster_tpu_torch.pipeline import make_ics
+    from toycluster_tpu_torch.utils import logging as tlog
+    ntotal = RESUME_NTOTAL
+    tag = f"config-4 {ntotal:.0e} classed"
+    ck = Path(tmp) / "wvt_resume.npz"
+    prof = Path(tmp) / "profile"
+    cfg = config4(ntotal, Path(tmp) / "IC_resume", wvt_max_iter=16)
+    _, launches, _, _, wall, t0 = counted(
+        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine="classed",
+                                        write=False, wvt_checkpoint=str(ck)),
+        record=False)
+    say(f"[{tag} run 1, wvt_max_iter=16] wall {wall:.3f} s; launches "
+        f"{launches}")
+    report_run(f"{tag} run 1", t0)
+    it, step, err_last = read_checkpoint(ck)
+    if it != 15:
+        fail(f"{tag}: run 1 left it = {it} in its checkpoint, not 15")
+    say(f"[{tag} run 1] checkpoint it = {it}, step = {step}, err_last = "
+        f"{err_last}")
+    cfg = config4(ntotal, Path(tmp) / "IC_resume")
+    (scene, parts), launches, totals, _, wall, t0 = counted(
+        torch, sp, cp, lambda: make_ics(
+            cfg, device="cuda", engine="classed", check=True, write=False,
+            wvt_checkpoint=str(ck), profile_dir=str(prof)), record=False)
+    resumed = [r for r in tlog.METRICS if r["stage"] == "wvt_resume"]
+    say(f"[{tag} run 2, resumed] wall {wall:.3f} s; launches {launches}; "
+        f"{resumed}")
+    if not (len(resumed) == 1 and resumed[0]["it"] == 16
+            and resumed[0]["step"] == step):
+        fail(f"{tag}: run 2 logged {resumed}, not it = 16, step = {step}")
+    recs = check_config4(torch, f"{tag} run 2", cfg, "classed", scene, parts,
+                         totals, t0, fell=False)
+    # the stage log rounds err_mean to 5 digits
+    errs = [r["err_mean"] for r in recs if r["stage"] == "wvt"]
+    if not errs[-1] <= round(err_last, 5):
+        fail(f"{tag}: run 2 ended at err_mean {errs[-1]} > the "
+             f"checkpoint's err_last {err_last}")
+    trace = prof / "wvt_trace.json"
+    size = trace.stat().st_size
+    with open(trace) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    kernels = sorted(n for n in names
+                     if "fused_wvt" in n or "solve_density" in n)
+    if not kernels:
+        fail(f"{tag}: the trace of run 2 names no count-class kernel")
+    say(f"[{tag} run 2] trace {size / 2**20:.1f} MiB, {len(names)} names, "
+        f"count-class kernels {kernels}")
+    trace.unlink()
+    ck.unlink()
 
 
 def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
@@ -1188,6 +1371,11 @@ def main():
         for engine, ntotal, slow in SUBSTRUCTURE_RUNS:
             run_substructure(torch, sp, cp, tmp, engine, ntotal, slow)
             t0 = phase(f"config-4 {ntotal:.0e}, engine={engine}", t0)
+        run_large(torch, sp, cp, tmp)
+        t0 = phase(f"A: config-4 {LARGE_NTOTAL:.0e}, engine=stream", t0)
+        run_resume(torch, sp, cp, tmp)
+        t0 = phase(f"B: config-4 {RESUME_NTOTAL:.0e} checkpoint -> resume, "
+                   f"engine=classed", t0)
     parent = None
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()

@@ -726,3 +726,67 @@ def test_subhalo_scene_on_cuda_with_density_audit(dev, engine):
     assert sp.stream_curl.launches > 0
     for k in ("pos", "vel", "rho", "hsml", "bfld"):
         assert bool(torch.isfinite(getattr(parts, k)).all()), k
+
+
+@pytest.mark.parametrize("engine", ["stream", "classed"])
+def test_checkpoint_resume_on_cuda(dev, engine, tmp_path, monkeypatch):
+    """The 60,000-particle config-4 scene: a run that checkpoints every 4
+    iterations leaves it = 3; a second run from that file resumes at
+    it = 4 with the saved step and ends finite."""
+    from functools import partial
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.models import wvt
+    from toycluster_tpu_torch.pipeline import make_ics
+    monkeypatch.setattr(wvt, "regularise_sph_particles",
+                        partial(wvt.regularise_sph_particles,
+                                checkpoint_every=4))
+    ck = str(tmp_path / "ck")
+    cfg = parse_par_file(str(_PAR), ntotal=60000, mass_ratio=1.0 / 3.0,
+                         substructure=True, wvt_max_iter=4)
+    make_ics(cfg, device="cuda", engine=engine, write=False,
+             wvt_checkpoint=ck, log=lambda *a, **k: None)
+    with np.load(ck) as f:
+        assert int(f["it"]) == 3
+        step = float(f["step"])
+        assert f["pos_gas"].shape == (30000, 3)
+    logs = []
+    _, parts = make_ics(cfg.replace(wvt_max_iter=8), device="cuda",
+                        engine=engine, write=False, wvt_checkpoint=ck,
+                        log=lambda stage, **kw: logs.append((stage, kw)))
+    assert [kw for s, kw in logs if s == "wvt_resume"] == [
+        dict(it=4, step=step)]
+    assert [kw["it"] for s, kw in logs if s == "wvt"][0] == 4
+    for k in ("pos", "vel", "rho", "hsml", "bfld"):
+        assert bool(torch.isfinite(getattr(parts, k)).all()), k
+
+
+def test_stage_memory_on_cuda(dev):
+    """On the card the five stage records of make_ics carry the
+    allocator's mem_gib and peak_gib, 0 < mem_gib <= peak_gib."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.pipeline import make_ics
+    logs = {}
+    cfg = parse_par_file(str(_PAR), ntotal=20000, sph_kernel="m4",
+                         wvt_max_iter=4)
+    make_ics(cfg, device="cuda", write=False,
+             log=lambda stage, **kw: logs.setdefault(stage, kw))
+    for stage in ("positions", "sph_quantities", "magnetic_field",
+                  "temperatures", "velocities"):
+        rec = logs[stage]
+        assert 0 < rec["mem_gib"] <= rec["peak_gib"], (stage, rec)
+
+
+@pytest.mark.parametrize("engine,names", [
+    ("stream", ("stream_wvt_kernel",)),
+    ("classed", ("fused_wvt_kernel", "solve_density_kernel"))])
+def test_profile_dir_on_cuda_names_the_kernels(dev, engine, names, tmp_path):
+    import json
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.pipeline import make_ics
+    cfg = parse_par_file(str(_PAR), ntotal=20000, sph_kernel="m4",
+                         wvt_max_iter=4)
+    make_ics(cfg, device="cuda", engine=engine, write=False,
+             profile_dir=str(tmp_path / "prof"), log=lambda *a, **k: None)
+    with open(tmp_path / "prof" / "wvt_trace.json") as fh:
+        seen = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    assert any(n in s for n in names for s in seen), sorted(seen)[:50]

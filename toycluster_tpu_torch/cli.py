@@ -37,6 +37,15 @@ def _coerce(v: str):
     return v
 
 
+def check_device(device: str) -> None:
+    """Raise unless ``device`` is cpu, or cuda with a card present."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, not {device!r}")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device=cuda but CUDA is not available; pass "
+                           "device=cpu to run on the CPU")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -54,12 +63,8 @@ def main(argv=None):
             engine = v
         else:
             overrides[k] = _coerce(v)
-    if device not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, not {device!r}")
+    check_device(device)
     check_engine(engine)
-    if device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device=cuda but CUDA is not available; pass "
-                           "device=cpu to run on the CPU")
     cfg = parse_par_file(argv[0], **overrides)
     make_ics(cfg, device=device, engine=engine)
     return 0

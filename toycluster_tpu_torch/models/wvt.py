@@ -25,8 +25,10 @@ rows.
 from __future__ import annotations
 
 import math
+import os
 import time
 
+import numpy as np
 import torch
 
 from .. import constants as const
@@ -61,6 +63,18 @@ BITS_MARGIN_WARM = 1.02
 BITS_MARGIN_COLD = 1.25
 # widest count class the count-class engine runs through fused_wvt
 FUSED_WIDTH = sph_mod.CLASS_EDGES[0]
+
+
+def percentile(x, q):
+    """numpy's default ("linear") ``q``-th percentile of the elements of
+    float32 ``x`` at any length (``torch.quantile`` refuses more than
+    2^24).  The rank and the weight are float32, as in numpy and
+    ``torch.quantile``."""
+    v = torch.sort(x.reshape(-1)).values
+    rank = np.float32(q / 100.0) * np.float32(v.numel() - 1)
+    lo = int(rank)
+    return torch.lerp(v[lo], v[min(lo + 1, v.numel() - 1)],
+                      float(rank - np.float32(lo)))
 
 
 def _drift_budget(kernel):
@@ -248,7 +262,7 @@ class _Loop:
                       & valid).sum()
         stats = torch.stack([
             err.max(), err.mean(), n_sat_d.to(torch.float32), drel.max(),
-            torch.quantile(row_drel, 0.999),
+            percentile(row_drel, 99.9),
             n_contract.to(torch.float32)]).tolist()
         err_max, err_mean, n_sat, dmax_rel, p999_rel, n_contract = stats
         n_sat = int(n_sat)
@@ -278,15 +292,50 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _load_checkpoint(path, n_gas, device):
+    """(pos_gas, step, err_last, err_diff_last, it) of a checkpoint;
+    pos_gas in the original particle order."""
+    with np.load(path) as ck:
+        pos = ck["pos_gas"]
+        if pos.shape != (n_gas, 3):
+            raise ValueError(f"checkpoint {path} holds pos_gas of shape "
+                             f"{pos.shape}, not ({n_gas}, 3)")
+        return (torch.as_tensor(pos, dtype=torch.float32, device=device),
+                float(ck["step"]), float(ck["err_last"]),
+                float(ck["err_diff_last"]), int(ck["it"]))
+
+
+def _save_checkpoint(path, pos_gas, order_acc, step, err_last,
+                     err_diff_last, it):
+    """Write the loop state in the JAX package's format: a resumed run
+    starts from a fresh sort, so the positions go back to the original
+    particle order (scattered through the composed permutation).  The
+    file is written through a handle, so ``path`` gets no suffix."""
+    pos_ck = torch.empty_like(pos_gas)
+    pos_ck[order_acc] = pos_gas
+    with open(path, "wb") as fh:
+        np.savez(fh, pos_gas=pos_ck.cpu().numpy(), step=step,
+                 err_last=err_last, err_diff_last=err_diff_last, it=it)
+
+
 def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                              parts: Particles, *, log=stage_log,
-                             engine: str = "stream"):
+                             engine: str = "stream",
+                             checkpoint_path: str | None = None,
+                             checkpoint_every: int = 16):
     """Relax the gas positions on ``engine`` ("stream" or "classed",
     models/sph.py).  Returns (parts, fresh): ``fresh`` means
     the loop stopped without a final move, so parts.rho/hsml/
     var_hsml_fac already hold the full-contract density solve at the
     final positions and the stand-alone density stage is redundant.
-    ``last_contract_frac`` then holds that solve's contract fraction."""
+    ``last_contract_frac`` then holds that solve's contract fraction.
+
+    ``checkpoint_path``: WVT checkpoint/resume, the JAX package's NPZ
+    file (gas positions in the original order, step, err_last,
+    err_diff_last, it), written every ``checkpoint_every`` iterations
+    and read at the start when the file exists; the run then goes on at
+    the iteration after the saved one.  The file holds no h, cap factors
+    or order, so a resumed run starts cold."""
     global last_contract_frac
     sph_mod.check_engine(engine)
     cfg = scene.config
@@ -321,6 +370,12 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     rhom_prev = torch.zeros((n_gas,), dtype=torch.float32, device=dev)
     order_acc = torch.arange(n_gas, device=dev)
     rho_l = hsml_l = vf_l = rho_model_l = None
+    it0 = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        pos_gas, step, err_last, err_diff_last, it_saved = _load_checkpoint(
+            checkpoint_path, n_gas, dev)
+        it0 = it_saved + 1
+        log("wvt_resume", it=it0, step=step)
 
     state = None
     its_since_build = 0
@@ -336,7 +391,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     # the ratchet's end point instead of crossing two rebuild storms
     if not bool((h_prev > 0).any()):
         h0m = L.model_fields(pos_gas)[1]
-        fac_gas = torch.where(h0m > torch.quantile(h0m, 0.98),
+        fac_gas = torch.where(h0m > percentile(h0m, 98.0),
                               torch.full_like(h0m, FAC_MAX),
                               torch.full_like(h0m, sph_mod.CAP_FACTOR))
         del h0m
@@ -347,7 +402,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     quiet_iters = 0
     drift_budget = _drift_budget(cfg.sph_kernel)
 
-    for it in range(max_iter + 1):
+    for it in range(it0, max_iter + 1):
         if (its_since_build >= REBUILD_EVERY
                 or sort_drift_acc > SORT_DRIFT_BUDGET
                 or (state is not None and state.tail is not None)):
@@ -357,12 +412,15 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
             # (the sort and block membership stay valid); the count-class
             # engine rebuilds
             if engine == "stream" and rho_model_l is not None:
+                t_refresh = time.perf_counter()
                 hm_w = (_metric_hsml(rho_model_l, mpart, desnngb)
                         * boxsize * SYM_MARGIN)
                 state = sph_mod.refresh_candidates(state, pos_gas, hm_w,
                                                    boxsize)
                 drift_acc = 0.0
-                log("wvt_refresh", it=it, max_cand=state.max_cand)
+                _sync(dev)
+                log("wvt_refresh", it=it, max_cand=state.max_cand,
+                    seconds=time.perf_counter() - t_refresh)
             else:
                 state = None
 
@@ -379,6 +437,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                         fac_gas)
                 h_cap_gas = torch.clamp(
                     torch.maximum(h0, h0_model) * fac_gas, max=L.h_hard)
+                t_build = time.perf_counter()
                 state = build(pos_gas, h_cap_gas, boxsize,
                               radius_sym_gas=h_box * boxsize * SYM_MARGIN)
                 del h0_model, h_box, h0, h_cap_gas
@@ -394,7 +453,9 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                 its_since_build = 0
                 drift_acc = 0.0
                 sort_drift_acc = 0.0
+                _sync(dev)
                 log("wvt_build", it=it, attempt=attempt,
+                    seconds=time.perf_counter() - t_build,
                     max_cand=state.max_cand,
                     tail_rows=(0 if state.tail is None
                                else int(state.tail[0].shape[0])))
@@ -470,6 +531,11 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
         drift_acc += 2.0 * pair_drel * step
         sort_drift_acc += 2.0 * out["dmax_rel"] * step
         del out
+        if checkpoint_path and (it + 1) % checkpoint_every == 0:
+            t_ck = time.perf_counter()
+            _save_checkpoint(checkpoint_path, pos_gas, order_acc, step,
+                             err_last, err_diff_last, it)
+            log("wvt_checkpoint", it=it, seconds=time.perf_counter() - t_ck)
 
     state = None
     parts = sph_mod.permute_gas(parts, order_acc)

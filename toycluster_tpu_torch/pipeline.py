@@ -13,6 +13,8 @@ logged, so stage times are device times, not enqueue times.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Optional
 
@@ -25,6 +27,8 @@ from .models import positions as pos_mod
 from .particles import halo_arrays_from_scene
 from .scene import build_scene
 from .utils.logging import stage_log
+from .utils.memory import reset_peak, stage_memory
+from .utils.profiling import profiler
 
 
 def _barrier(device):
@@ -34,17 +38,28 @@ def _barrier(device):
 
 def make_ics(cfg: Config, *, device, engine: str = "stream",
              seed: Optional[int] = None, write: bool = True, log=stage_log,
-             check: bool = False):
+             check: bool = False, profile_dir: Optional[str] = None,
+             wvt_checkpoint: Optional[str] = None):
     """Run the full pipeline on ``device`` with the neighbour ``engine``
     ("stream" or "classed", models/sph.py); returns (scene, particles).
 
     check: audit the solved SPH densities on 512 gas lanes against
       direct summation over every gas particle (``ops/brute.py``); a
       worst relative error above 5e-3 raises RuntimeError.
+    profile_dir: capture a ``torch.profiler`` trace of the WVT hot loop
+      (host, and the device on CUDA) as the Chrome trace
+      ``profile_dir/wvt_trace.json``; the directory is made if needed.
+    wvt_checkpoint: NPZ path for WVT checkpoint/resume
+      (``wvt.regularise_sph_particles``).
+
+    On CUDA the positions, sph_quantities, magnetic_field, temperatures
+    and velocities records carry the allocator's ``mem_gib`` and
+    ``peak_gib`` (the peak since this call began).
     """
     from .models.sph import check_engine
     check_engine(engine)
     device = torch.device(device)
+    reset_peak(device)
     t0 = time.perf_counter()
     scene = build_scene(cfg)
     log("setup", scene=scene)
@@ -70,7 +85,7 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
 
     parts = pos_mod.make_positions(gen, scene, ha)
     _barrier(device)
-    log("positions", n=parts.n_total)
+    log("positions", n=parts.n_total, **stage_memory(device))
 
     pid = ids_mod.make_ids(scene.npart_gas, scene.ntotal)
     parts = parts.replace(pid=torch.as_tensor(pid.astype("int64"),
@@ -82,23 +97,31 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
 
     if not scene.dm_only:
         from .models import bfield, sph, temperature, wvt
-        parts, wvt_fresh = wvt.regularise_sph_particles(scene, ha, parts,
-                                                        log=log,
-                                                        engine=engine)
+        prof = profiler(device) if profile_dir else contextlib.nullcontext()
+        with prof:
+            parts, wvt_fresh = wvt.regularise_sph_particles(
+                scene, ha, parts, log=log, engine=engine,
+                checkpoint_path=wvt_checkpoint)
+        if profile_dir:
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir,
+                                                  "wvt_trace.json"))
         if wvt_fresh:
             # the loop stopped before a final move: parts already hold
             # the full-contract density solve at the final positions
             nstate = None
             sph.last_contract_frac = wvt.last_contract_frac
             log("sph_quantities", reused="wvt-final",
-                contract_frac=sph.last_contract_frac)
+                contract_frac=sph.last_contract_frac,
+                **stage_memory(device))
         else:
             parts, nstate = sph.find_sph_quantities(scene, ha, parts,
                                                     return_state=True,
                                                     engine=engine)
             _barrier(device)
             log("sph_quantities",
-                contract_frac=sph.last_contract_frac)
+                contract_frac=sph.last_contract_frac,
+                **stage_memory(device))
         if check:
             try:
                 _check_density(scene, parts, log)
@@ -110,7 +133,7 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
             parts = bfield.make_magnetic_field(scene, ha, parts, nstate,
                                                engine=engine)
             _barrier(device)
-            log("magnetic_field")
+            log("magnetic_field", **stage_memory(device))
         cool_core = ((cfg.rho0_fac, cfg.rc_fac)
                      if cfg.double_beta_cool_cores else None)
         parts, _ = pos_mod.reassign_gas_to_halos(parts, ha, scene.boxsize,
@@ -120,12 +143,12 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
         pos_mod.show_mass_in_r200(scene, parts, log=log)  # main.c:60
         parts = temperature.make_temperatures(scene, parts)
         _barrier(device)
-        log("temperatures")
+        log("temperatures", **stage_memory(device))
 
     from .models import kinematics, velocities
     parts = velocities.make_velocities(gen, scene, ha, parts)
     _barrier(device)
-    log("velocities")
+    log("velocities", **stage_memory(device))
     parts = kinematics.apply_kinematics(scene, parts)
     _barrier(device)
     log("kinematics")

@@ -31,6 +31,7 @@ from .config import parse_par_file
 from .ops import class_pair, stream_pair
 from .pipeline import make_ics
 from .utils import logging as tlog
+from .utils.profiling import profiler
 
 
 def _busy_us(intervals):
@@ -66,10 +67,7 @@ def main(argv=None):
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiler(torch.device("cuda")) as prof:
         t0 = time.perf_counter()
         make_ics(cfg, device="cuda", engine=engine, write=False,
                  log=tlog.stage_log)
