@@ -89,6 +89,43 @@ parent).
    only on the rows whose reach leaves the box).  fused_wvt is also timed
    without its frozen-lane skip and without its warp tiles.
 
+8. The sharded path (``toycluster_tpu_torch/parallel/``), through
+   ``make_ics(mesh=..., check=True)`` with the ranks started by
+   ``parallel.mesh.spawn`` after the kernels were built here.  Under gloo,
+   two ranks sharing the one card: B, config 4 at Ntotal 1e7 on the
+   stream engine (ring halo); C, the repository's par (1e6) with the ring
+   halo and again with the gather halo; D, the par on the xla engine
+   (make_ics engine=classed).  E: ``sharded_density`` and
+   ``sharded_curl`` on C-ring's relaxed gas.  Then under NCCL, one rank:
+   A, B's scene, and E again.  Each run sums its ranks' launch counters,
+   set to 0 just before it: the sharded loop must have launched
+   stream_wvt (A, B, C) or solve_density and wvt_displacement and no
+   stream_wvt at all (D), E solve_density and block-list stream_curl;
+   each run's contract fraction >= 0.999 on the sharded loop's last
+   solve and on every rank's final solve, no list or ring overflow, its
+   density audit <= 5e-3, and its snapshot must read back.  B's first
+   sharded step is held against A's (rho, hsml rtol 2e-4; positions rtol
+   1e-4, atol 1e-2; the same start) and B's final err_mean within 1% of
+   A's; A's first and final err_mean within 1% of step 5's single-card
+   run of the same scene; C's ring and gather relaxations must be
+   bit-equal; D's (xla engine) err_mean trajectory must have C's length
+   and each value within 1e-3 relative of C's, its relaxed rho and hsml
+   within rtol 2e-3 of C's and its positions within 1e-2 hsml of C's
+   (periodic), each on >= 98% of the gas (the kernels' tolerance against
+   their plain versions, compare_wvt); E at world size 2 against 1 at
+   rtol 2e-4 (density) and 3e-4 / atol 1e-8 (curl).  Rank 0 records the
+   first call of the sharded loop of B (stream_wvt on the ring-filled
+   [local | buffer | dump] sources) and of D (solve_density and
+   wvt_displacement on the xla engine's block lists over the gathered
+   sources); after the runs each is launched here on its full inputs
+   and held against its plain version on SHARDED_CHECK_ROWS of its rows
+   (most of them rows whose lists name remote sources), with the
+   tolerances of step 3.  Prints
+   per run the iterations, the err_mean trajectory, the updates/s, rank
+   0's collectives per iteration (host clock and CUDA events), the ring
+   buffer's fill against its slots and the peak device memory per rank.
+   Two ranks on one card measure no multi-card speed.
+
 Prints the wall time of each phase, the kernel record and the card line
 before the last line, and as the last line {"ok": true, "device": {...}}.  Any failure exits nonzero
 without that line.
@@ -783,6 +820,17 @@ def check_snapshot(out, n_total):
     say(f"snapshot: {snap['pos'].shape[0]} particles, {n_gas} gas, finite")
 
 
+def row_name(lib, kw):
+    """The kernel record that a call of kernel library ``lib`` with
+    keywords ``kw`` counts for: block-list stream_curl and the
+    superblock-list calls of the count-class kernels have their own."""
+    if lib == "stream_curl":
+        return "stream_curl" if kw.get("sb_mode") else "stream_curl_blocks"
+    if lib in ("solve_density", "wvt_displacement") and kw.get("sb_mode"):
+        return lib + "_sb"
+    return lib
+
+
 def counted(torch, sp, cp, drive, record=True):
     """``drive()`` with every launch counter and the stage log's records
     set to 0 just before; the kernel wrappers are patched by name to
@@ -817,24 +865,19 @@ def counted(torch, sp, cp, drive, record=True):
             return out
         return call
 
-    def curl_name(kw):
-        return "stream_curl" if kw.get("sb_mode") else "stream_curl_blocks"
-
-    def solve_name(kw):
-        return "solve_density_sb" if kw.get("sb_mode") else "solve_density"
-
-    def disp_name(kw):
-        return ("wvt_displacement_sb" if kw.get("sb_mode")
-                else "wvt_displacement")
-
     patches = [
         (wvt, "stream_wvt", recorder(
             sp.stream_wvt, lambda kw: "stream_wvt"
             if kw.get("do_disp", True) else None)),
-        (bfield, "stream_curl", recorder(sp.stream_curl, curl_name)),
-        (wvt, "solve_density", recorder(cp.solve_density, solve_name)),
-        (sph, "solve_density", recorder(cp.solve_density, solve_name)),
-        (wvt, "wvt_displacement", recorder(cp.wvt_displacement, disp_name)),
+        (bfield, "stream_curl", recorder(
+            sp.stream_curl, lambda kw: row_name("stream_curl", kw))),
+        (wvt, "solve_density", recorder(
+            cp.solve_density, lambda kw: row_name("solve_density", kw))),
+        (sph, "solve_density", recorder(
+            cp.solve_density, lambda kw: row_name("solve_density", kw))),
+        (wvt, "wvt_displacement", recorder(
+            cp.wvt_displacement, lambda kw: row_name("wvt_displacement",
+                                                     kw))),
         (wvt, "fused_wvt", recorder(cp.fused_wvt, lambda kw: "fused_wvt")),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
@@ -1103,7 +1146,8 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     SLOW_SUBSTRUCTURE when ``slow``, held to ``check_config4``; the
     snapshot must read back.  A second run of the same scene, without
     the audit and the snapshot, times every call of the per-halo
-    functions (``timed_halo_loops``) for their share of each stage."""
+    functions (``timed_halo_loops``) for their share of each stage.
+    Returns the first run's err_mean trajectory."""
     from toycluster_tpu_torch.pipeline import make_ics
     from toycluster_tpu_torch.utils import logging as tlog
     tag = f"config-4 {ntotal:.0e} {engine}"
@@ -1119,7 +1163,7 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     peak = torch.cuda.max_memory_allocated()
     say(f"[{tag}] slow_substructure={slow}; wall {wall:.3f} s; launches "
         f"{launches}")
-    check_config4(torch, tag, cfg, engine, scene, parts, totals, t0)
+    recs = check_config4(torch, tag, cfg, engine, scene, parts, totals, t0)
     first_call_stats(torch, sp, cp, tag, recorded)
     del recorded
     say(f"[{tag}] peak device memory {peak / 2**30:.4f} GiB "
@@ -1139,6 +1183,7 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     say(f"[{tag}] instrumented run (every per-halo call synchronised): "
         f"wall {wall:.3f} s")
     report_halo_loops(f"{tag} instrumented", book, list(tlog.METRICS), t0)
+    return [r["err_mean"] for r in recs if r["stage"] == "wvt"]
 
 
 def read_checkpoint(path):
@@ -1314,6 +1359,508 @@ def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
     return res
 
 
+# ------------------------------------------------ step 8: the sharded path
+
+# (tag, Config overrides of the par, make_ics engine, halo, first step)
+# of the two-rank gloo runs on one card (B, C, D) and of the one-rank
+# NCCL run (A); the config-4 runs at step 5's full size
+SHARDED_NTOTAL = 10_000_000
+SHARDED_GLOO = (("B", "config4", "stream", None, True),
+                ("C-ring", "par", "stream", None, False),
+                ("C-gather", "par", "stream", "gather", False),
+                ("D", "par", "classed", None, False))
+SHARDED_NCCL = (("A", "config4", "stream", None, True),)
+SHARD_TIMEOUT = 600
+# the runs whose first sharded-loop call of each kernel rank 0 records
+# (B: ring-filled sources; D: the xla engine's block lists), and the rows
+# of such a call held against the plain version: 3 in 4 of them rows whose
+# lists name remote sources, the rest rows with local sources alone
+RECORDED_RUNS = ("B", "D")
+SHARDED_CHECK_ROWS = 1024
+# E's list width: the stand-alone stages raise on list overflow, and rows
+# of the 1e6 par list more than the JAX default's 256 blocks (the card,
+# PR 8); 4096 exceeds its 3,907 blocks, so no row can overflow
+E_MAX_CAND = 4096
+
+
+def _kernel_fns():
+    from toycluster_tpu_torch.ops import class_pair as cp
+    from toycluster_tpu_torch.ops import stream_pair as sp
+    return (sp.stream_wvt, sp.stream_curl, cp.solve_density,
+            cp.wvt_displacement, cp.fused_wvt)
+
+
+def _launch_counts():
+    return {k.__name__: k.launches for k in _kernel_fns()}
+
+
+def _row_counting(torch, mod, attrs, rows, calls=None):
+    """Patch the kernel wrappers ``attrs`` that module ``mod`` calls so
+    that each call adds its launches to ``rows`` under its kernel record
+    (``row_name``) and, with ``calls``, keeps a copy of the first call of
+    each record's inputs there.  Returns the function that restores
+    them."""
+    from toycluster_tpu_torch.ops import class_pair as cp
+    from toycluster_tpu_torch.ops import stream_pair as sp
+    saved = []
+    for attr in attrs:
+        fn = getattr(sp if attr.startswith("stream") else cp, attr)
+
+        def call(*args, _fn=fn, _lib=attr, **kw):
+            n0 = _fn.launches
+            out = _fn(*args, **kw)
+            name = row_name(_lib, kw)
+            rows[name] += _fn.launches - n0
+            if calls is not None and name not in calls:
+                calls[name] = ([a.clone() if torch.is_tensor(a) else a
+                                for a in args], dict(kw))
+            return out
+        saved.append((attr, getattr(mod, attr)))
+        setattr(mod, attr, call)
+
+    def restore():
+        for attr, fn in saved:
+            setattr(mod, attr, fn)
+    return restore
+
+
+def _sharded_run(mesh, tmp, tag, scene_name, engine, halo, first_step):
+    """One ``make_ics(mesh=mesh, check=True)`` on this rank, with the
+    collectives timed and every launch counter set to 0 just before.
+    ``wvt_shard.regularise_sharded`` is wrapped to count the launches of
+    the sharded loop alone, by kernel record, to force ``halo``, to save
+    the loop's output (``<tag>_wvt.npz``) and, with ``first_step``, the
+    first sharded step (a fresh ``sharded_wvt_iteration`` call on the
+    loop's input, ``<tag>_first.npz``), on rank 0; in RECORDED_RUNS rank
+    0 also saves the first loop call of each kernel record
+    (``<tag>_<record>_call.pt``)."""
+    import numpy as np
+    import torch
+    from toycluster_tpu_torch.models import sph
+    from toycluster_tpu_torch.parallel import wvt_shard
+    from toycluster_tpu_torch.pipeline import make_ics
+    from toycluster_tpu_torch.utils import logging as tlog
+    out = Path(tmp) / f"IC_{tag}"
+    cfg = (config4(SHARDED_NTOTAL, out) if scene_name == "config4" else
+           config_par(out))
+    loop = Counter()
+    orig = wvt_shard.regularise_sharded
+
+    def save(name, **arrays):
+        if mesh.rank == 0:
+            np.savez(Path(tmp) / f"{tag}_{name}.npz",
+                     **{k: v.cpu().numpy() if torch.is_tensor(v) else v
+                        for k, v in arrays.items()})
+
+    def relax(mesh_, ha, pos_gas, **kw):
+        if halo is not None:
+            kw["halo"] = halo
+        if first_step:
+            pos, n_real = wvt_shard.pad_for_mesh(pos_gas, mesh_.size)
+            eng = wvt_shard.sharded_wvt_iteration(
+                mesh_, ha, n_real=n_real, boxsize=kw["boxsize"],
+                mpart=kw["mpart"], desnngb=kw["desnngb"],
+                kernel=kw["kernel"], cool_core=kw["cool_core"],
+                engine=kw["engine"], halo=kw.get("halo", "auto"))
+            st = eng(pos, torch.zeros_like(pos[:, 0]), kw["step"])
+            save("first", pos0=pos_gas, pos=st.pos[:n_real],
+                 rho=st.rho[:n_real], hsml=st.hsml[:n_real],
+                 err_mean=float(st.err_mean))
+            del st, eng
+        mesh_.collective_stats()
+        calls = {} if tag in RECORDED_RUNS and mesh_.rank == 0 else None
+        restore = _row_counting(torch, wvt_shard, (
+            "stream_wvt", "solve_density", "wvt_displacement"), loop, calls)
+        try:
+            res = orig(mesh_, ha, pos_gas, **kw)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        save("wvt", pos=res[0], rho=res[1], hsml=res[2])
+        for name, call in (calls or {}).items():
+            torch.save(call, Path(tmp) / f"{tag}_{name}_call.pt")
+        return res
+
+    logs = []
+
+    def log(stage, **kw):
+        logs.append({"t": time.perf_counter(), "stage": stage,
+                     **{k: v for k, v in kw.items() if tlog._jsonable(v)}})
+
+    for k in _kernel_fns():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wvt_shard.regularise_sharded = relax
+    t0 = time.perf_counter()
+    try:
+        scene, parts = make_ics(cfg, device=mesh.device, engine=engine,
+                                check=True, mesh=mesh, log=log)
+    finally:
+        wvt_shard.regularise_sharded = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if tag == "C-ring":
+        # the stages' inputs (E): the relaxed gas and its solved fields
+        n_gas = parts.n_gas
+        save("stages_in", pos=parts.pos[:n_gas], hsml=parts.hsml[:n_gas],
+             rho=parts.rho[:n_gas], vf=parts.var_hsml_fac[:n_gas],
+             apot=parts.apot[:n_gas], boxsize=scene.boxsize,
+             mpart=scene.mpart_gas, desnngb=cfg.desnngb,
+             kernel=cfg.sph_kernel,
+             **halo_arrays_of(scene, mesh.device))
+    return dict(tag=tag, rank=mesh.rank, wall=wall, logs=logs,
+                launches=_launch_counts(), loop_launches=dict(loop),
+                contract=sph.last_contract_frac, n_total=scene.ntotal,
+                n_gas=parts.n_gas, out=str(out),
+                peak_gib=torch.cuda.max_memory_allocated(mesh.device) / 2**30)
+
+
+def halo_arrays_of(scene, device):
+    """The scene's HaloArrays fields, as ``ha_<field>`` tensors."""
+    import dataclasses
+    from toycluster_tpu_torch.particles import halo_arrays_from_scene
+    ha = halo_arrays_from_scene(scene, device)
+    return {f"ha_{f.name}": getattr(ha, f.name)
+            for f in dataclasses.fields(ha)}
+
+
+def config_par(out):
+    """The repository's par as it is (Ntotal 1e6, WC6, B field on)."""
+    from toycluster_tpu_torch.config import parse_par_file
+    return parse_par_file(ROOT / PKG / "data" / "cluster.par",
+                          output_file=str(out))
+
+
+def _sharded_stages(mesh, tmp):
+    """E on this rank: ``sharded_density`` (warm-started from the solved
+    hsml) and ``sharded_curl`` on the relaxed gas of C-ring, counted by
+    kernel record; rank 0 saves the results as ``E_ws<size>.npz``."""
+    import numpy as np
+    import torch
+    from toycluster_tpu_torch.from_reference import halo_arrays_from_numpy
+    from toycluster_tpu_torch.parallel import stages
+    with np.load(Path(tmp) / "C-ring_stages_in.npz") as f:
+        d = {k: f[k] for k in f.files}
+    dev = mesh.device
+    ha = halo_arrays_from_numpy({k[3:]: v for k, v in d.items()
+                                 if k.startswith("ha_")}, dev)
+    t = {k: torch.as_tensor(d[k], device=dev)
+         for k in ("pos", "hsml", "rho", "vf", "apot")}
+    kw = dict(boxsize=float(d["boxsize"]), mpart=float(d["mpart"]),
+              kernel=str(d["kernel"]), max_cand=E_MAX_CAND)
+    for k in _kernel_fns():
+        k.launches = 0
+    rows = Counter()
+    restore = _row_counting(torch, stages, ("solve_density", "stream_curl"),
+                            rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        rho, hsml, vf, wk = stages.sharded_density(
+            mesh, ha, t["pos"], t["hsml"], desnngb=int(d["desnngb"]), **kw)
+        b, bmax = stages.sharded_curl(mesh, t["pos"], t["hsml"], t["rho"],
+                                      t["vf"], t["apot"], **kw)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    if mesh.rank == 0:
+        np.savez(Path(tmp) / f"E_ws{mesh.size}.npz",
+                 **{k: v.cpu().numpy() for k, v in dict(
+                     rho=rho, hsml=hsml, vf=vf, wk=wk, b=b, bmax=bmax).items()})
+    return dict(tag="E", rank=mesh.rank, wall=wall,
+                launches=_launch_counts(), stage_launches=dict(rows))
+
+
+def rank_step8(mesh, tmp, runs, stages_too):
+    """The runs of step 8 on one rank, then (``stages_too``) E."""
+    mesh.timing = True
+    out = [_sharded_run(mesh, tmp, *run) for run in runs]
+    if stages_too:
+        mesh.timing = False
+        out.append(_sharded_stages(mesh, tmp))
+    return out
+
+
+def _close(name, a, b, rtol, atol=0.0):
+    import numpy as np
+    err = np.abs(a - b) - (atol + rtol * np.abs(b))
+    if not (err <= 0).all():
+        fail(f"{name}: {(err > 0).sum()} of {err.size} values beyond rtol "
+             f"{rtol} atol {atol}")
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _mostly_close(name, diff, limit, share=0.98):
+    """Fail unless diff <= limit on at least ``share`` of the values;
+    returns diff's (median, p99, max) over the values."""
+    import numpy as np
+    q = tuple(float(x) for x in np.quantile(diff, (0.5, 0.99, 1.0)))
+    if not np.mean(diff <= limit) >= share:
+        fail(f"{name}: within {limit} on {np.mean(diff <= limit):.6f} of "
+             f"{diff.size} values, under {share} (median, p99, max {q})")
+    return q
+
+
+def report_sharded(tag, ranks):
+    """Print a sharded run's numbers and check it: the loop's kernels
+    (launch counters of the ranks summed, by kernel record), the contract
+    fraction >= 0.999 on the loop's last solve and on every rank's final
+    solve, no candidate-list or ring overflow, the density audit <= 5e-3,
+    the snapshot.  Returns (loop launches by record, run launches by
+    kernel, the wvt_shard records)."""
+    first = ranks[0]
+    logs = first["logs"]
+    loop = Counter()
+    total = Counter()
+    for r in ranks:
+        loop.update(r["loop_launches"])
+        total.update(r["launches"])
+    shard = [r for r in logs if r["stage"] == "wvt_shard"]
+    done = [r for r in logs if r["stage"] == "wvt_shard_done"][0]
+    ring = [r for r in logs if r["stage"] == "wvt_shard_ring"]
+    comm = [r for r in logs if r["stage"] == "wvt_shard_comm"]
+    builds = [r for r in logs if r["stage"] == "wvt_shard_build"]
+    audit = [r for r in logs if r["stage"] == "check_density"]
+    say(f"[{tag}] world size {len(ranks)}: wall {first['wall']:.3f} s; "
+        f"launches (ranks summed) in the sharded loop by record "
+        f"{dict(loop)}, in the whole run by kernel {dict(total)}")
+    say(f"[{tag}] wvt_shard: {done['iterations']} iterations in "
+        f"{done['seconds']:.3f} s = {done['particle_updates_per_s']:.6g} "
+        f"particle updates/s; err_mean {[r['err_mean'] for r in shard]}; "
+        f"overflow {[r['overflow'] for r in shard]}; builds at "
+        f"{[(r['it'], r['overflow']) for r in builds]}; contract fraction "
+        f"of the last iteration {done['contract_frac']:.6f}")
+    if ring:
+        say(f"[{tag}] ring buffer fill (it, largest fill over the ranks, "
+            f"slots R): {[(r['it'], r['fill'], r['slots']) for r in ring]}")
+    if comm:
+        host = [r["host_s"] for r in comm]
+        ms = [r["device_ms"] or 0.0 for r in comm]
+        say(f"[{tag}] rank 0 collectives per iteration: "
+            f"{comm[0]['collectives']} calls; host s {host}; device ms "
+            f"(CUDA events) {ms}; mean host {sum(host) / len(host):.6f} s, "
+            f"device {sum(ms) / len(ms):.6f} ms")
+    say(f"[{tag}] peak device memory per rank GiB "
+        f"{[round(r['peak_gib'], 4) for r in ranks]}; final contract "
+        f"fraction per rank {[r['contract'] for r in ranks]}; audit "
+        f"{audit}")
+    if not done["contract_frac"] >= 0.999:
+        fail(f"{tag}: the sharded loop's contract {done['contract_frac']} "
+             f"< 0.999")
+    for r in ranks:
+        if not r["contract"] >= 0.999:
+            fail(f"{tag} rank {r['rank']}: contract {r['contract']} < 0.999")
+    over = [r["overflow"] for r in shard + builds if r["overflow"] > 0]
+    if over:
+        fail(f"{tag}: list or ring overflow {over}")
+    if not audit or not audit[0].get("worst_rel_err", 1.0) <= 5e-3:
+        fail(f"{tag}: check_density {audit}")
+    check_snapshot(first["out"], first["n_total"])
+    Path(first["out"]).unlink()
+    return loop, total, shard
+
+
+def _check_rows(torch, cand, n_local):
+    """SHARDED_CHECK_ROWS rows of a sharded call, spread evenly: 3 in 4
+    of them among the rows whose lists name a source slot >= n_local
+    (ring buffer or another rank's blocks), the rest among the others."""
+    remote = (cand >= n_local).any(dim=1)
+    picked = []
+    for mask, k in ((remote, 3 * SHARDED_CHECK_ROWS // 4),
+                    (~remote, SHARDED_CHECK_ROWS // 4)):
+        ids = torch.nonzero(mask).flatten()
+        if ids.numel():
+            sel = torch.linspace(0, ids.numel() - 1, min(k, ids.numel()),
+                                 device=ids.device).long()
+            picked.append(ids[sel])
+    rows = torch.unique(torch.cat(picked))
+    return rows, int(remote.sum())
+
+
+def check_sharded_calls(torch, sp, cp, tmp):
+    """The recorded first sharded-loop calls of B and D, launched here on
+    their full inputs and held against the plain version on the rows of
+    ``_check_rows`` with step 3's tolerances.  Returns {record: (max
+    error against the plain version, kernel ms on the full call)}."""
+    res = {}
+    for tag, name, cand_arg in (("B", "stream_wvt", 1),
+                                ("D", "solve_density", 2),
+                                ("D", "wvt_displacement", 3)):
+        path = Path(tmp) / f"{tag}_{name}_call.pt"
+        if not path.exists():
+            fail(f"{tag}: no sharded {name} call was recorded")
+        args, kw = torch.load(path, map_location="cuda")
+        path.unlink()
+        cand = args[cand_arg]
+        nbl = cand.shape[0]
+        if name == "stream_wvt":
+            # superblock slots: the local ones, then the ring's buffer
+            # and its dump slot
+            n_local = nbl // 8
+            row_args = range(1, 7)
+            valid_all = args[0][:nbl, 3, :] > 0
+        else:
+            n_local = nbl
+            row_args = range(2, 6) if name == "solve_density" else \
+                range(3, 6)
+            valid_all = args[1][:nbl, 0, :] > 0.5
+        rows, n_remote = _check_rows(torch, cand, n_local)
+        sub = list(args)
+        for i in row_args:
+            sub[i] = args[i][rows].contiguous()
+        valid = valid_all[rows]
+        t0 = time.perf_counter()
+        if name == "stream_wvt":
+            full = sp.stream_wvt(*args, **kw)
+            got = tuple(None if x is None else x[rows] for x in full)
+            ref = sp._stream_wvt_reference(*sub, n_sweeps=sp.N_SWEEPS, **kw)
+            err = compare_wvt(torch, got, ref, valid, kw["desnngb"],
+                              kw.get("do_disp", True), f"{tag} {name}")
+            ms = event_ms(torch, lambda: sp.stream_wvt(*args, **kw), 3)
+        elif name == "solve_density":
+            full = cp.solve_density(*args, **kw)
+            got = tuple(x[rows] for x in full)
+            plain_kw = dict(kernel=kw["kernel"], desnngb=kw["desnngb"],
+                            sb_mode=kw.get("sb_mode", False))
+            ref = unpack(cp._solve_density_reference(
+                *sub, n_sweeps=kw.get("n_sweeps", cp.SOLVE_SWEEPS),
+                **plain_kw), False)
+            err = compare_wvt(torch, got, ref, valid, kw["desnngb"], False,
+                              f"{tag} {name}")
+            ms = event_ms(torch, lambda: cp.solve_density(*args, **kw), 3)
+        else:
+            got = cp.wvt_displacement(*args, **kw)[rows]
+            ref = cp._wvt_displacement_reference(
+                *sub, kernel=kw["kernel"], sb_mode=kw.get("sb_mode", False))
+            err = compare_disp(torch, got, ref, valid, f"{tag} {name}")
+            ms = event_ms(torch, lambda: cp.wvt_displacement(*args, **kw), 3)
+        say(f"[{tag} sharded {name}] first loop call on rank 0: "
+            f"{args[0].shape[0]} source blocks for {nbl} receiver blocks, "
+            f"list width {cand.shape[1]}, {n_remote} rows naming remote "
+            f"sources; kernel {ms:.6g} ms on the full call; against the "
+            f"plain version on {rows.numel()} rows: max_err {err:.6g} "
+            f"({time.perf_counter() - t0:.3f} s)")
+        res[name] = (err, ms)
+    return res
+
+
+def run_sharded(torch, sp, cp, tmp, single_card_errs):
+    """Step 8: the sharded path (``parallel/``) on the card: B, C, D and
+    E's two-rank half under gloo, two ranks sharing cuda:0; then A and
+    E's one-rank half under NCCL.  ``single_card_errs`` is step 5's
+    err_mean trajectory of A's scene.  Returns (the sharded loops'
+    launches by kernel record, E's launches by kernel record, both summed
+    over runs and ranks; ``check_sharded_calls``'s results)."""
+    import numpy as np
+    from toycluster_tpu_torch.parallel.mesh import spawn
+    # the ranks share the card with this process: hand back its cache
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gloo = spawn(rank_step8, 2, backend="gloo", device="cuda",
+                 timeout_s=SHARD_TIMEOUT, args=(tmp, SHARDED_GLOO, True))
+    t0 = phase("8: world size 2 (gloo, one card): B, C, D, E", t0)
+    nccl = spawn(rank_step8, 1, backend="nccl", device="cuda",
+                 timeout_s=SHARD_TIMEOUT, args=(tmp, SHARDED_NCCL, True))
+    t0 = phase("8: world size 1 (NCCL): A, E", t0)
+    by_tag = {}
+    for ranks in (gloo, nccl):
+        for i, r0 in enumerate(ranks[0]):
+            by_tag[r0["tag"], len(ranks)] = [r[i] for r in ranks]
+    loops, stage_rows = Counter(), Counter()
+    shard = {}
+    for (tag, ws), ranks in by_tag.items():
+        if tag == "E":
+            continue
+        loop, total, shard[tag] = report_sharded(tag, ranks)
+        loops.update(loop)
+        want = (("solve_density", "wvt_displacement") if tag == "D" else
+                ("stream_wvt",))
+        for name in want:
+            if loop[name] <= 0:
+                fail(f"{tag}: the sharded loop launched {name} no time")
+        if tag == "D" and total["stream_wvt"] != 0:
+            fail("D: the xla engine's run launched stream_wvt")
+        if sum(loop.values()) != sum(loop[name] for name in want):
+            fail(f"{tag}: the sharded loop launched other kernels or list "
+                 f"modes than {want}: {dict(loop)}")
+    # B's first step against A's at the CPU tests' 1-vs-4 tolerances, and
+    # B's final err_mean within 1% of A's
+    fa, fb = (np.load(Path(tmp) / f"{t}_first.npz") for t in "AB")
+    if not np.array_equal(fa["pos0"], fb["pos0"]):
+        fail("A and B did not start from the same gas positions")
+    worst = {k: _close(f"B vs A first step {k}", fb[k], fa[k], rtol)
+             for k, rtol in (("rho", 2e-4), ("hsml", 2e-4))}
+    worst["pos"] = _close("B vs A first step pos", fb["pos"], fa["pos"],
+                          1e-4, 1e-2)
+    ea, eb = shard["A"][-1]["err_mean"], shard["B"][-1]["err_mean"]
+    say(f"[B vs A] first step: largest relative difference {worst}, "
+        f"err_mean {float(fb['err_mean'])} vs {float(fa['err_mean'])}; "
+        f"final err_mean {eb} vs {ea}")
+    if not abs(eb - ea) <= 0.01 * ea:
+        fail(f"B's final err_mean {eb} is not within 1% of A's {ea}")
+    # A against step 5's single-card loop on the same scene: its first
+    # and final err_mean within 1% (the loops differ in their caps,
+    # retries and refreshes, so their trajectories may differ between)
+    s5 = single_card_errs
+    a_errs = [r["err_mean"] for r in shard["A"]]
+    say(f"[A vs step 5] err_mean first {a_errs[0]} vs {s5[0]}, final "
+        f"{a_errs[-1]} vs {s5[-1]} (single-card loop: {len(s5)} "
+        f"iterations, sharded: {len(a_errs)})")
+    for k in (0, -1):
+        if not abs(a_errs[k] - s5[k]) <= 0.01 * s5[k]:
+            fail(f"A's err_mean {a_errs[k]} is not within 1% of the "
+                 f"single-card loop's {s5[k]} (index {k})")
+    # ring against gather, bit for bit
+    ring, gath, xla = (np.load(Path(tmp) / f"{t}_wvt.npz")
+                       for t in ("C-ring", "C-gather", "D"))
+    for k in ("pos", "rho", "hsml"):
+        if not np.array_equal(ring[k], gath[k]):
+            fail(f"C: ring and gather differ in {k} "
+                 f"({int((ring[k] != gath[k]).sum())} values)")
+    say("[C] ring halo and gather: relaxed pos, rho and hsml bit-equal")
+    # D (the xla engine) against C (the stream engine), at the kernels'
+    # tolerance against their plain versions
+    c_errs = [r["err_mean"] for r in shard["C-ring"]]
+    d_errs = [r["err_mean"] for r in shard["D"]]
+    if len(d_errs) != len(c_errs) or not all(
+            abs(d - c) <= 1e-3 * c for d, c in zip(d_errs, c_errs)):
+        fail(f"D's err_mean trajectory {d_errs} is not C's {c_errs} within "
+             f"1e-3 relative")
+    box = float(np.load(Path(tmp) / "C-ring_stages_in.npz")["boxsize"])
+    dpos = np.abs(xla["pos"] - ring["pos"])
+    dpos = np.linalg.norm(np.minimum(dpos, box - dpos), axis=1)
+    q = {k: _mostly_close(f"D vs C relaxed {k}",
+                          np.abs(xla[k] - ring[k]) / np.abs(ring[k]), 2e-3)
+         for k in ("rho", "hsml")}
+    q["pos / hsml"] = _mostly_close("D vs C relaxed pos",
+                                    dpos / ring["hsml"], 1e-2)
+    say(f"[D vs C] err_mean trajectories equal within 1e-3; relaxed state "
+        f"(median, p99, max) {q}")
+    # E: the sharded stages at world size 2 against 1
+    e1, e2 = (np.load(Path(tmp) / f"E_ws{ws}.npz") for ws in (1, 2))
+    for (tag, ws), ranks in by_tag.items():
+        if tag == "E":
+            rows = Counter()
+            for r in ranks:
+                rows.update(r["stage_launches"])
+            stage_rows.update(rows)
+            say(f"[E] world size {ws}: wall {ranks[0]['wall']:.3f} s; "
+                f"launches (ranks summed) by record {dict(rows)}")
+            if rows["solve_density"] <= 0 or rows["stream_curl_blocks"] <= 0:
+                fail(f"E at world size {ws}: block-list solve_density or "
+                     f"stream_curl launched no time")
+    worst = {k: _close(f"E sharded_density {k}", e2[k], e1[k], 2e-4)
+             for k in ("rho", "hsml", "vf", "wk")}
+    worst["b"] = _close("E sharded_curl", e2["b"], e1["b"], 3e-4, 1e-8)
+    worst["bmax"] = _close("E bmax", e2["bmax"], e1["bmax"], 3e-4)
+    say(f"[E] world size 2 against 1: largest relative difference {worst}")
+    calls = check_sharded_calls(torch, sp, cp, tmp)
+    phase("8: sharded-loop calls against their plain versions", t0)
+    return loops, stage_rows, calls
+
+
 def main():
     import argparse
     import torch
@@ -1368,14 +1915,19 @@ def main():
                     fail(f"no {name} call was recorded")
                 recorded[name] = run_recorded[name]
             t0 = phase(f"1e6 main path, engine={engine}", t0)
+        single_card_errs = {}
         for engine, ntotal, slow in SUBSTRUCTURE_RUNS:
-            run_substructure(torch, sp, cp, tmp, engine, ntotal, slow)
+            single_card_errs[engine, ntotal] = run_substructure(
+                torch, sp, cp, tmp, engine, ntotal, slow)
             t0 = phase(f"config-4 {ntotal:.0e}, engine={engine}", t0)
         run_large(torch, sp, cp, tmp)
         t0 = phase(f"A: config-4 {LARGE_NTOTAL:.0e}, engine=stream", t0)
         run_resume(torch, sp, cp, tmp)
         t0 = phase(f"B: config-4 {RESUME_NTOTAL:.0e} checkpoint -> resume, "
                    f"engine=classed", t0)
+        loops, stage_rows, sharded_calls = run_sharded(
+            torch, sp, cp, tmp, single_card_errs["stream", SHARDED_NTOTAL])
+        t0 = phase("8: the sharded path", t0)
     parent = None
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()
@@ -1394,11 +1946,19 @@ def main():
          "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None}
         for name, lib, rep in KERNELS]}
-    # what a check measured besides (EXTRA_KEYS)
+    # what a check measured besides (EXTRA_KEYS); each record's launches
+    # in step 8's sharded loops and in its sharded stages (E), summed over
+    # runs and ranks; on the records of the sharded loop's first calls,
+    # their error against the plain version and the kernel's time there
     for k in record["kernels"]:
         for key in EXTRA_KEYS:
             if key in res[k["name"]]:
                 k[key] = res[k["name"]][key]
+        k["sharded_loop_launches"] = loops.get(k["name"], 0)
+        k["sharded_stage_launches"] = stage_rows.get(k["name"], 0)
+        if k["name"] in sharded_calls:
+            k["sharded_call_max_abs_err"], k["sharded_call_ms"] = \
+                sharded_calls[k["name"]]
     for k in record["kernels"]:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

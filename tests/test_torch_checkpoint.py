@@ -202,3 +202,60 @@ def test_checkpoint_of_another_scene_raises(start, tmp_path):
         twvt.regularise_sph_particles(port_scene(2), tha, tparts,
                                       log=lambda *a, **k: None,
                                       checkpoint_path=ck + ".npz")
+
+
+def test_sharded_checkpoints_cross_between_packages(tmp_path):
+    """The sharded loop's file (toycluster_tpu/parallel/wvt_shard.py:
+    load :524-536, save :600-606): the JAX package's regularise_sharded
+    on a mesh of 2 and the port's on 2 gloo ranks each write it at it = 1
+    with the same keys, and each resumes from the other's at it = 2 with
+    the saved step, on trajectories within err_mean rtol 2e-2 and 2e-3
+    box of each other."""
+    from toycluster_tpu.parallel import wvt_shard as jws
+    from toycluster_tpu.parallel.mesh import make_mesh
+    from torch_parallel_ranks import MAX_CAND, STEP, jax_scene, rank_loop
+    from torch_parallel_ranks import spawn as spawn_ranks
+    cfg, sc, ha, parts, data = jax_scene()
+    fj, ft = str(tmp_path / "jax_ck.npz"), str(tmp_path / "port_ck.npz")
+
+    def jax_loop(max_iter, ck):
+        logs = []
+        pos, _, _ = jws.regularise_sharded(
+            make_mesh(2), ha, parts.pos[:parts.n_gas], boxsize=sc.boxsize,
+            mpart=sc.mpart_gas, desnngb=cfg.desnngb, kernel=cfg.sph_kernel,
+            max_cand=MAX_CAND, step=STEP, max_iter=max_iter,
+            log=_recorder(logs), checkpoint_path=ck, checkpoint_every=2)
+        return np.asarray(pos), logs
+
+    def port_loop(max_iter, ck):
+        pos, _, _, logs = spawn_ranks(rank_loop, 2, data, max_iter, ck, 2)[0]
+        return pos, logs
+
+    jax_loop(1, fj)
+    port_loop(1, ft)
+    with np.load(fj) as cj, np.load(ft) as ct:
+        keys = ["err_diff_last", "err_last", "hsml", "it", "pos", "rhom",
+                "step"]
+        assert sorted(cj.files) == sorted(ct.files) == keys
+        for k in keys:
+            assert cj[k].dtype == ct[k].dtype and cj[k].shape == ct[k].shape
+        assert int(cj["it"]) == int(ct["it"]) == 1
+        step_j, step_t = float(cj["step"]), float(ct["step"])
+        assert np.float32(step_j) == np.float32(step_t)
+        assert _periodic_max(cj["pos"], ct["pos"], sc.boxsize) \
+            < 2e-3 * sc.boxsize
+    pos_t, logs_t = port_loop(3, fj)
+    pos_j, logs_j = jax_loop(3, ft)
+
+    def resumed(logs):
+        return [(kw["it"], kw["step"]) for s, kw in logs
+                if s == "wvt_shard_resume"]
+
+    def errs(logs):
+        return [kw["err_mean"] for s, kw in logs if s == "wvt_shard"]
+
+    assert resumed(logs_t) == [(2, step_j)]
+    assert resumed(logs_j) == [(2, step_t)]
+    assert len(errs(logs_t)) == len(errs(logs_j)) == 2
+    np.testing.assert_allclose(errs(logs_t), errs(logs_j), rtol=2e-2)
+    assert _periodic_max(pos_t, pos_j, sc.boxsize) < 2e-3 * sc.boxsize

@@ -790,3 +790,37 @@ def test_profile_dir_on_cuda_names_the_kernels(dev, engine, names, tmp_path):
     with open(tmp_path / "prof" / "wvt_trace.json") as fh:
         seen = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
     assert any(n in s for n in names for s in seen), sorted(seen)[:50]
+
+
+@pytest.mark.parametrize("mode", ["ring", "xla"])
+def test_sharded_step_on_one_nccl_rank(dev, mode):
+    """One sharded WVT step (parallel/wvt_shard.py) on one NCCL rank on
+    the card, against the same step on one gloo CPU rank (the plain
+    versions), at the kernels' tolerances: h and rho rtol 2e-3 on >= 98%
+    of the gas, the displacement rtol 2e-4 / atol 1e-6 max|delta|; the
+    step launched its kernels on the card.  Lists of the JAX default width
+    (256 blocks, 64 superblocks): 64 blocks overflow at this size."""
+    from torch_parallel_ranks import port_scene, rank_steps
+    from toycluster_tpu_torch.ops import cuda_build
+    from toycluster_tpu_torch.parallel.mesh import spawn
+    cuda_build.build(("stream_wvt", "solve_density", "wvt_displacement"))
+    data = port_scene(20_000)
+    got = spawn(rank_steps, 1, backend="nccl", device="cuda", timeout_s=300,
+                args=(data, (mode,), 256))[0]
+    ref = spawn(rank_steps, 1, backend="gloo", device="cpu", timeout_s=300,
+                args=(data, (mode,), 256))[0]
+    want = ("stream_wvt",) if mode == "ring" else ("solve_density",
+                                                   "wvt_displacement")
+    assert all(got["launches"][k] > 0 for k in want)
+    assert ref["launches"] == dict.fromkeys(ref["launches"], 0)
+    g, r = got[mode], ref[mode]
+    assert int(g["cand_overflow"]) <= 0
+    for k in ("rho", "hsml"):
+        assert np.isclose(g[k], r[k], rtol=2e-3).mean() >= 0.98, k
+    box = data["kw"]["boxsize"]
+
+    def disp(p):
+        d = p - data["pos"]
+        return d - box * np.round(d / box)
+    a, b = disp(r["pos"]), disp(g["pos"])
+    np.testing.assert_allclose(b, a, rtol=2e-4, atol=1e-6 * np.abs(a).max())

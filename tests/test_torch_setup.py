@@ -4,6 +4,7 @@ compiled reference's setup table, the CLI's error paths, and that the
 port imports no JAX."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -120,23 +121,24 @@ def _run(code, **env):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, toycluster_tpu_torch, toycluster_tpu_torch.cli, "
-            "toycluster_tpu_torch.pipeline, toycluster_tpu_torch.models.wvt, "
-            "toycluster_tpu_torch.models.bfield, "
-            "toycluster_tpu_torch.models.velocities, "
-            "toycluster_tpu_torch.models.temperature, "
-            "toycluster_tpu_torch.models.substructure, "
-            "toycluster_tpu_torch.ops.brute, "
-            "toycluster_tpu_torch.from_reference, "
-            "toycluster_tpu_torch.ops.stream_pair, "
-            "toycluster_tpu_torch.ops.cuda_build, "
-            "toycluster_tpu_torch.ops.cusp, toycluster_tpu_torch.trace; "
+    """Every module of the port, found by walking the package, imports
+    neither JAX nor the JAX package."""
+    code = ("import pkgutil, importlib, sys, toycluster_tpu_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.') if not m.name.endswith('__main__')]; "
+            "[importlib.import_module(m) for m in mods]; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'toycluster_tpu' "
-            "or m.startswith('toycluster_tpu.')]; print(bad)")
-    out = _run(code)
+            "or m.startswith('toycluster_tpu.')]; "
+            "print(json.dumps([mods, bad]))")
+    out = _run("import json; " + code)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    mods, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    for name in ("parallel.mesh", "parallel.wvt_shard", "parallel.stages",
+                 "run_configs", "utils.profiling", "utils.memory",
+                 "utils.counter_rng", "pipeline", "ops.stream_pair"):
+        assert f"toycluster_tpu_torch.{name}" in mods
 
 
 def test_cli_error_paths(tmp_path):

@@ -56,13 +56,18 @@ def make_temperatures(scene: Scene, parts: Particles) -> Particles:
         return parts
     d_com = torch.as_tensor(np.stack([h.d_com for h in scene.halos]),
                             dtype=torch.float32, device=parts.device)
-    halo = parts.halo[:n_gas]
-    hid = torch.clamp(halo, min=0).long()  # halo < 0: out of box, u = 0
-    r = torch.linalg.vector_norm(
-        parts.pos[:n_gas] - (d_com[hid] + scene.boxhalf), dim=-1)
+    return parts.replace(u=temperature_eval(
+        tables, d_com, scene.boxhalf, parts.pos[:n_gas], parts.halo[:n_gas]))
+
+
+def temperature_eval(tables, d_com, boxhalf, pos_gas, gas_halo):
+    """u of each gas particle from its own halo's row of the stacked
+    tables (halo < 0: out of the box, u = 0)."""
+    hid = torch.clamp(gas_halo, min=0).long()
+    r = torch.linalg.vector_norm(pos_gas - (d_com[hid] + boxhalf), dim=-1)
     u = batched_spline_eval(tables, hid, r)
-    u = torch.where(halo < 0, torch.zeros_like(u), u).to(torch.float32)
-    return parts.replace(u=u)
+    return torch.where(gas_halo < 0, torch.zeros_like(u),
+                       u).to(torch.float32)
 
 
 def internal_energy_analytic(scene: Scene, i: int, r):

@@ -39,7 +39,7 @@ def _barrier(device):
 def make_ics(cfg: Config, *, device, engine: str = "stream",
              seed: Optional[int] = None, write: bool = True, log=stage_log,
              check: bool = False, profile_dir: Optional[str] = None,
-             wvt_checkpoint: Optional[str] = None):
+             wvt_checkpoint: Optional[str] = None, mesh=None):
     """Run the full pipeline on ``device`` with the neighbour ``engine``
     ("stream" or "classed", models/sph.py); returns (scene, particles).
 
@@ -50,7 +50,16 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
       (host, and the device on CUDA) as the Chrome trace
       ``profile_dir/wvt_trace.json``; the directory is made if needed.
     wvt_checkpoint: NPZ path for WVT checkpoint/resume
-      (``wvt.regularise_sph_particles``).
+      (``wvt.regularise_sph_particles``; with a mesh, the sharded loop's
+      file, ``parallel.wvt_shard.regularise_sharded``).
+    mesh: a ``parallel.mesh.Mesh`` whose every rank calls make_ics alike
+      (``device`` must then be ``mesh.device``): the WVT relaxation runs
+      sharded over the ranks (``regularise_sharded``; engine "stream" is
+      its stream engine with the ring halo, "classed" its xla engine)
+      from rank 0's gas positions, and every rank then holds the relaxed
+      positions and runs the remaining stages unsharded.  Rank 0 alone
+      logs (``wvt_sharded`` with ``n_devices`` after the loop) and writes
+      the snapshot.
 
     On CUDA the positions, sph_quantities, magnetic_field, temperatures
     and velocities records carry the allocator's ``mem_gib`` and
@@ -59,6 +68,17 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
     from .models.sph import check_engine
     check_engine(engine)
     device = torch.device(device)
+    if (mesh is not None and device.type == "cuda"
+            and device.index is None):
+        device = torch.device("cuda", torch.cuda.current_device())
+    if mesh is not None and device != mesh.device:
+        raise ValueError(f"make_ics: device {device} is not the mesh's "
+                         f"rank device {mesh.device}")
+    # the ranks of a mesh but rank 0 neither log, print nor write
+    talk = mesh is None or mesh.rank == 0
+    if not talk:
+        from .utils.logging import silent_log
+        log, write = silent_log, False
     reset_peak(device)
     t0 = time.perf_counter()
     scene = build_scene(cfg)
@@ -93,15 +113,21 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
     parts = pos_mod.shift_origin(parts, ha, scene.boxsize)
     _barrier(device)
     log("shift_origin")
-    pos_mod.show_mass_in_r200(scene, parts, log=log)  # main.c:48
+    if talk:
+        pos_mod.show_mass_in_r200(scene, parts, log=log)  # main.c:48
 
     if not scene.dm_only:
         from .models import bfield, sph, temperature, wvt
         prof = profiler(device) if profile_dir else contextlib.nullcontext()
         with prof:
-            parts, wvt_fresh = wvt.regularise_sph_particles(
-                scene, ha, parts, log=log, engine=engine,
-                checkpoint_path=wvt_checkpoint)
+            if mesh is not None:
+                parts = _relax_sharded(mesh, scene, ha, parts, engine, log,
+                                       wvt_checkpoint)
+                wvt_fresh = False
+            else:
+                parts, wvt_fresh = wvt.regularise_sph_particles(
+                    scene, ha, parts, log=log, engine=engine,
+                    checkpoint_path=wvt_checkpoint)
         if profile_dir:
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir,
@@ -140,7 +166,8 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
                                                  cool_core)
         _barrier(device)
         log("reassign")
-        pos_mod.show_mass_in_r200(scene, parts, log=log)  # main.c:60
+        if talk:
+            pos_mod.show_mass_in_r200(scene, parts, log=log)  # main.c:60
         parts = temperature.make_temperatures(scene, parts)
         _barrier(device)
         log("temperatures", **stage_memory(device))
@@ -158,6 +185,33 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
         write_scene_snapshot(cfg.output_file, scene, parts)
         log("output", path=cfg.output_file, dt=time.perf_counter() - t0)
     return scene, parts
+
+
+def _relax_sharded(mesh, scene, ha, parts, engine, log, checkpoint):
+    """The WVT relaxation over ``mesh`` (JAX: toycluster_tpu/
+    pipeline.py:86-108): rank 0's gas positions are broadcast first, so
+    that no rank depends on bit-identical sampling; every rank returns
+    with the relaxed positions and their model density."""
+    from .models import sph, wvt
+    from .parallel import wvt_shard
+    cfg = scene.config
+    n_gas = parts.n_gas
+    cool_core = ((cfg.rho0_fac, cfg.rc_fac)
+                 if cfg.double_beta_cool_cores else None)
+    step = 0.035 if cfg.sph_kernel == "m4" else (
+        0.0085 / (2.0 if scene.mtotal < 1e5 else 1.0))
+    pos_gas = mesh.broadcast(parts.pos[:n_gas], src=0)
+    pos_gas, _, _ = wvt_shard.regularise_sharded(
+        mesh, ha, pos_gas, boxsize=scene.boxsize, mpart=scene.mpart_gas,
+        desnngb=cfg.desnngb, kernel=cfg.sph_kernel, step=step,
+        max_iter=min(cfg.wvt_max_iter, wvt.NUMITER),
+        err_diff_limit=cfg.wvt_err_diff_limit, cool_core=cool_core,
+        log=log, engine="stream" if engine == "stream" else "xla",
+        checkpoint_path=checkpoint)
+    rhom = sph.global_density_model(pos_gas, ha, scene.boxsize, cool_core)
+    log("wvt_sharded", n_devices=mesh.size)
+    return parts.replace(pos=torch.cat([pos_gas, parts.pos[n_gas:]]),
+                         rho_model=rhom)
 
 
 def _check_density(scene, parts, log, n_sample=512):
