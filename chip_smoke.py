@@ -125,10 +125,31 @@ parent).
    0's collectives per iteration (host clock and CUDA events), the ring
    buffer's fill against its slots and the peak device memory per rank.
    Two ranks on one card measure no multi-card speed.
+9. The variant slice, counted as in step 4, through ``make_ics`` or the
+   CLI on cuda.  Presets 1 (65,536 particles, no B field; on both
+   engines) and 3 (1e7, an equal-mass merger on a zero-energy comet
+   orbit; stream engine) of ``run_configs`` with the density audit, the
+   contract and err_mean checks of step 4, their first and final
+   err_mean within 2% and 10% (preset 1) and 1% and 5% (preset 3) of the
+   JAX package's records of the same presets (FLAGSHIP_r07_config1.json,
+   FLAGSHIP_r07_config3.json), and the snapshot; then the 1e6 par with
+   sph_kernel=m4 on both engines with step 4's checks, each kernel
+   record's first M4 main-path call held against its plain version with
+   step 3's tolerances, timed and bounded as in step 7 (every kernel
+   must be launched by one of the two runs); then flag variants of the
+   par at 1e6 with step 4's checks: cool cores (mass ratio 0.5, Cuspy 3,
+   engine=classed), the parabola and direct orbits (mass ratio 0.5),
+   no_rcut_in_t=false, the Buote07 concentration, bfld_norm=0 and
+   baryon_fraction=0.  Every run must launch its engine's displacement
+   kernel, stream_curl exactly when it has a B field, the far-tail
+   records when a WVT build had far-tail rows, no stream_wvt on the
+   classed engine and, without gas, no kernel at all; the DM-only
+   snapshot holds no gas and finite, nonzero DM speeds.
 
-Prints the wall time of each phase, the kernel record and the card line
-before the last line, and as the last line {"ok": true, "device": {...}}.  Any failure exits nonzero
-without that line.
+Prints the wall time of each phase, the kernel record (with each record's
+M4 numbers of step 9 as ``m4_*`` keys) and the card line before the last
+line, and as the last line {"ok": true, "device": {...}}.  Any failure
+exits nonzero without that line.
 """
 
 from __future__ import annotations
@@ -801,7 +822,10 @@ def check_kernels_on_cusp(torch, sp, cp, device):
 
 # --------------------------------------------------------------- main path
 
-def check_snapshot(out, n_total):
+def check_snapshot(out, n_total, bfld=True):
+    """Read the snapshot back: n_total particles, every block finite,
+    rho/u/hsml positive on the gas and bfld nonzero on 99% of it (with
+    ``bfld=False``: zero on all of it).  Returns the snapshot."""
     from toycluster_tpu_torch.io.gadget import read_snapshot
     import numpy as np
     snap = read_snapshot(str(out))
@@ -815,9 +839,14 @@ def check_snapshot(out, n_total):
     for k in ("rho", "u", "hsml"):
         if not (snap[k][:n_gas] > 0).all():
             fail(f"snapshot block {k} has non-positive gas values")
-    if not (np.abs(snap["bfld"][:n_gas]).sum(axis=1) > 0).mean() > 0.99:
+    b_set = np.abs(snap["bfld"][:n_gas]).sum(axis=1) > 0
+    if bfld and not b_set.mean() > 0.99:
         fail("bfld is zero on more than 1% of the gas")
+    if not bfld and b_set.any():
+        fail(f"bfld is set on {int(b_set.sum())} gas particles of a run "
+             f"without a B field")
     say(f"snapshot: {snap['pos'].shape[0]} particles, {n_gas} gas, finite")
+    return snap
 
 
 def row_name(lib, kw):
@@ -921,11 +950,7 @@ def report_run(tag, t0, fell=True):
     value.  Returns the records."""
     from toycluster_tpu_torch.models import sph
     from toycluster_tpu_torch.utils import logging as tlog
-    for stage, t, dt, rec in stage_spans(tlog.METRICS, t0):
-        mem = (f"; mem_gib {rec['mem_gib']:.4f} peak_gib "
-               f"{rec['peak_gib']:.4f}" if "mem_gib" in rec else "")
-        say(f"[{tag}] stage {stage:<16} ends at {t:9.3f} s (+{dt:.3f} s)"
-            f"{mem}")
+    report_stages(tag, t0)
     errs = [r["err_mean"] for r in tlog.METRICS if r["stage"] == "wvt"]
     done = [r for r in tlog.METRICS if r["stage"] == "wvt_done"]
     builds = [r for r in tlog.METRICS if r["stage"] == "wvt_build"]
@@ -952,6 +977,17 @@ def report_run(tag, t0, fell=True):
     if not frac >= 0.999:
         fail(f"contract fraction {frac} < 0.999")
     return list(tlog.METRICS)
+
+
+def report_stages(tag, t0):
+    """Print the stage times (and device memory where the record has it)
+    of the run that began at t0."""
+    from toycluster_tpu_torch.utils import logging as tlog
+    for stage, t, dt, rec in stage_spans(tlog.METRICS, t0):
+        mem = (f"; mem_gib {rec['mem_gib']:.4f} peak_gib "
+               f"{rec['peak_gib']:.4f}" if "mem_gib" in rec else "")
+        say(f"[{tag}] stage {stage:<16} ends at {t:9.3f} s (+{dt:.3f} s)"
+            f"{mem}")
 
 
 def stage_spans(records, t0):
@@ -1076,11 +1112,9 @@ def config4(ntotal, out, **over):
     """The config-4 preset (``run_configs.PRESETS[4]``, the JAX package's
     configs/run_configs.py:29-30, as overrides of the repository's par:
     mass ratio 1/3, Giocoli substructure) at ``ntotal``."""
-    from toycluster_tpu_torch.config import parse_par_file
     from toycluster_tpu_torch.run_configs import PRESETS
-    return parse_par_file(ROOT / PKG / "data" / "cluster.par",
-                          **{**PRESETS[4], "ntotal": ntotal,
-                             "output_file": str(out), **over})
+    return par_config(**{**PRESETS[4], "ntotal": ntotal,
+                         "output_file": str(out), **over})
 
 
 def check_config4(torch, tag, cfg, engine, scene, parts, totals, t0,
@@ -1310,16 +1344,19 @@ def run_resume(torch, sp, cp, tmp):
     ck.unlink()
 
 
-def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
+def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None,
+                             tag="main-path"):
     """Kernel vs plain on the inputs of each kernel's first main-path
-    call: agreement, CUDA-event times and bounds.  These launches come
-    after the counted runs.  With ``parent`` (ParentKernels) the
-    fused_wvt and stream_curl records also time its kernels."""
+    call (of each record in ``recorded``): agreement, CUDA-event times
+    and bounds.  These launches come after the counted runs.  With
+    ``parent`` (ParentKernels) the fused_wvt and stream_curl records also
+    time its kernels."""
     res = {}
-    args, kw = recorded["stream_wvt"]
-    res["stream_wvt"] = check_wvt(
-        torch, sp, args, kw, (args[0][:, 3, :] > 0),
-        f"main-path rows={args[1].shape[0]} width={args[1].shape[1]}:")
+    if "stream_wvt" in recorded:
+        args, kw = recorded["stream_wvt"]
+        res["stream_wvt"] = check_wvt(
+            torch, sp, args, kw, (args[0][:, 3, :] > 0),
+            f"{tag} rows={args[1].shape[0]} width={args[1].shape[1]}:")
     # receiver lanes with a nonzero wfac are the curl's valid ones; the
     # count-class operators are held on every receiver lane
     for name, check, cand_arg, valid_of in (
@@ -1336,6 +1373,8 @@ def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
              lambda a: torch.ones_like(a[5], dtype=torch.bool)),
             ("fused_wvt", check_fused, 2,
              lambda a: torch.ones_like(a[5], dtype=torch.bool))):
+        if name not in recorded:
+            continue
         args, kw = recorded[name]
         if check is check_curl:
             res[name] = check(torch, sp, args, kw, valid_of(args), parent)
@@ -1348,7 +1387,7 @@ def time_on_main_path_inputs(torch, sp, cp, recorded, parent=None):
         r = res[name]
         extra = "".join(f" {k}={r[k]:.6g}" for k in EXTRA_KEYS[1:]
                         if k in r)
-        say(f"main-path {name}: rows={cand.shape[0]} width={cand.shape[1]} "
+        say(f"{tag} {name}: rows={cand.shape[0]} width={cand.shape[1]} "
             f"sb_mode={kw.get('sb_mode', name == 'stream_wvt')} "
             f"max_err={r['err']:.6g} kernel_ms={r['ms']:.6g} "
             f"plain_ms={r['plain_ms']:.6g} bound_ms={r['bound_ms']:.6g} "
@@ -1527,9 +1566,7 @@ def halo_arrays_of(scene, device):
 
 def config_par(out):
     """The repository's par as it is (Ntotal 1e6, WC6, B field on)."""
-    from toycluster_tpu_torch.config import parse_par_file
-    return parse_par_file(ROOT / PKG / "data" / "cluster.par",
-                          output_file=str(out))
+    return par_config(output_file=str(out))
 
 
 def _sharded_stages(mesh, tmp):
@@ -1861,6 +1898,214 @@ def run_sharded(torch, sp, cp, tmp, single_card_errs):
     return loops, stage_rows, calls
 
 
+# ---------------------------------------------- step 9: the variant slice
+
+# run_configs presets 1 and 3 against the JAX package's records of the
+# same presets (its configs/run_configs.py on a TPU; only the physics is
+# read from them: the WVT err_mean at the first and at the last
+# iteration), with how far the port's may lie from each, relative:
+# (record file, first, final)
+JAX_RECORDS = {1: ("FLAGSHIP_r07_config1.json", 0.02, 0.10),
+               3: ("FLAGSHIP_r07_config3.json", 0.01, 0.05)}
+PRESET_RUNS = ((1, "stream"), (1, "classed"), (3, "stream"))
+# the flag variants of the repository's par (1e6): (tag, engine, CLI
+# tokens, par lines added).  The cool cores need the Cuspy bits (without
+# them the flag changes no halo) and their two tags in the par (the
+# reference's io.c:435-443; the values are the Config defaults), the
+# orbits a second halo.
+VARIANTS = (
+    ("cool cores", "classed", ("mass_ratio=0.5", "cuspy=3",
+                               "double_beta_cool_cores=true"),
+     ("Rho0_Fac 50", "Rc_Fac 40")),
+    ("parabola", "stream", ("mass_ratio=0.5", "orbit=parabola"), ()),
+    ("direct", "stream", ("mass_ratio=0.5", "orbit=direct"), ()),
+    ("no_rcut_in_t=false", "stream", ("no_rcut_in_t=false",), ()),
+    ("buote07", "stream", ("nfw_concentration_model=buote07",), ()),
+    ("bfld_norm=0", "stream", ("bfld_norm=0",), ()),
+    ("baryon_fraction=0", "stream", ("baryon_fraction=0",), ()),
+)
+
+
+def par_config(par=None, **over):
+    """The Config of ``par`` (default: the repository's) with field
+    overrides."""
+    from toycluster_tpu_torch.config import parse_par_file
+    return parse_par_file(par or ROOT / PKG / "data" / "cluster.par", **over)
+
+
+def path_kernels(tag, engine, cfg, launches, recs):
+    """Step 9's launch checks of a run of ``cfg`` on ``engine``: without
+    gas no kernel at all; with gas the engine's displacement kernel
+    (stream_wvt; fused_wvt or wvt_displacement), stream_curl exactly when
+    there is a B field (superblock lists on the stream engine, block
+    lists on the classed one), the far-tail records of solve_density and
+    wvt_displacement when a WVT build had far-tail rows, and no
+    stream_wvt on the classed engine."""
+    gas = cfg.baryon_fraction > 0
+    curl = "stream_curl" if engine == "stream" else "stream_curl_blocks"
+    launched = {k for k, v in launches.items() if v > 0}
+    if not gas:
+        if launched:
+            fail(f"{tag}: a run without gas launched {sorted(launched)}")
+        return
+    need = {"stream_wvt"} if engine == "stream" else set()
+    if engine == "classed":
+        if "stream_wvt" in launched:
+            fail(f"{tag}: the classed engine launched stream_wvt")
+        if not launched & {"fused_wvt", "wvt_displacement"}:
+            fail(f"{tag}: the classed engine launched no displacement")
+        if any(r.get("tail_rows", 0) for r in recs
+               if r["stage"] == "wvt_build"):
+            need |= {"solve_density_sb", "wvt_displacement_sb"}
+    if cfg.bfld_norm:
+        need.add(curl)
+    elif launches["stream_curl"]:
+        fail(f"{tag}: stream_curl launched without a B field")
+    for name in sorted(need - launched):
+        fail(f"{tag}: {name} launched no time")
+
+
+def jax_record_gate(n, errs):
+    """Fail unless the first and the final err_mean of preset ``n`` lie
+    within JAX_RECORDS' bounds of the JAX package's record."""
+    path, first, final = JAX_RECORDS[n]
+    with open(ROOT / path) as fh:
+        rec = json.load(fh)
+    ref = (rec["wvt_err_mean_first"], rec["wvt_err_mean_final"])
+    say(f"[config {n}] err_mean first {errs[0]} vs the JAX record's "
+        f"{ref[0]} ({errs[0] / ref[0] - 1:+.4f}), final {errs[-1]} vs "
+        f"{ref[1]} ({errs[-1] / ref[1] - 1:+.4f}); iterations {len(errs)} "
+        f"vs {rec['wvt_iterations']} ({path})")
+    for got, want, tol, what in ((errs[0], ref[0], first, "first"),
+                                 (errs[-1], ref[1], final, "final")):
+        if not abs(got - want) <= tol * want:
+            fail(f"config {n}: {what} err_mean {got} is not within {tol} "
+                 f"of the JAX record's {want}")
+
+
+def run_preset(torch, sp, cp, tmp, n, engine):
+    """Preset ``n`` of run_configs (full size) through ``make_ics(device=
+    "cuda", engine=engine, check=True)``, counted without recording any
+    kernel's inputs: ``report_run``, ``path_kernels``, the density audit
+    <= 5e-3, ``jax_record_gate`` and the snapshot; prints the peak
+    device memory."""
+    from toycluster_tpu_torch.pipeline import make_ics
+    from toycluster_tpu_torch.run_configs import PRESETS
+    tag = f"config {n} {engine}"
+    out = Path(tmp) / f"IC_config{n}"
+    cfg = par_config(**{**PRESETS[n], "output_file": str(out)})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, launches, _, _, wall, t0 = counted(
+        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
+                                        check=True), record=False)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{tag}] ntotal {cfg.ntotal}; wall {wall:.3f} s; launches "
+        f"{launches}; peak device memory {peak / 2**30:.4f} GiB")
+    recs = report_run(tag, t0)
+    path_kernels(tag, engine, cfg, launches, recs)
+    audit = [r for r in recs if r["stage"] == "check_density"]
+    if not audit or not audit[0].get("worst_rel_err", 1.0) <= 5e-3:
+        fail(f"{tag}: check_density {audit}")
+    say(f"[{tag}] check_density worst rel err {audit[0]['worst_rel_err']} "
+        f"on {audit[0]['n']} gas lanes")
+    jax_record_gate(n, [r["err_mean"] for r in recs if r["stage"] == "wvt"])
+    check_snapshot(out, cfg.ntotal, bfld=bool(cfg.bfld_norm))
+    out.unlink()
+
+
+def run_variant(torch, sp, cp, tmp, tag, engine, tokens, par_lines=()):
+    """The CLI main path on cuda with ``engine`` and the field=value
+    ``tokens`` on the repository's par with ``par_lines`` added, counted
+    (``counted``): with gas step 4's checks (``report_run``: the
+    contract, the fall of err_mean; the snapshot) and ``path_kernels``;
+    without gas no kernel launched, no gas in the snapshot, the header's
+    masses and box, the DM speeds finite and nonzero.  Returns
+    (launches, recorded)."""
+    import numpy as np
+    from toycluster_tpu_torch import cli
+    from toycluster_tpu_torch.scene import build_scene
+    par = Path(tmp) / "variant.par"
+    par.write_text("\n".join(
+        [(ROOT / PKG / "data" / "cluster.par").read_text(), *par_lines, ""]))
+    cfg = par_config(par, **{k: cli._coerce(v) for k, _, v in
+                             (t.partition("=") for t in tokens)})
+    out = Path(tmp) / "IC_variant"
+    rc, launches, _, recorded, wall, t0 = counted(
+        torch, sp, cp, lambda: cli.main(
+            [str(par), *tokens, f"output_file={out}", "device=cuda",
+             f"engine={engine}"]))
+    if rc != 0:
+        fail(f"[{tag}] cli.main returned {rc}")
+    say(f"[{tag}] engine={engine} {' '.join(tokens)}: wall {wall:.3f} s, "
+        f"launches {launches}")
+    gas = cfg.baryon_fraction > 0
+    if gas:
+        recs = report_run(tag, t0)
+    else:
+        from toycluster_tpu_torch.utils import logging as tlog
+        report_stages(tag, t0)
+        recs = list(tlog.METRICS)
+    path_kernels(tag, engine, cfg, launches, recs)
+    snap = check_snapshot(out, cfg.ntotal, bfld=bool(gas and cfg.bfld_norm))
+    out.unlink()
+    if not gas:
+        scene, hdr = build_scene(cfg), snap["header"]
+        v = np.linalg.norm(snap["vel"], axis=1)
+        if not (hdr.npart[0] == 0 and hdr.npart[1] == scene.npart_dm
+                and hdr.mass[0] == 0 and hdr.boxsize == scene.boxsize
+                and abs(hdr.mass[1] / scene.mpart_dm - 1) < 1e-6):
+            fail(f"[{tag}] header npart {hdr.npart}, mass {hdr.mass}, box "
+                 f"{hdr.boxsize}: not the DM-only scene's")
+        if not (np.isfinite(v).all() and (v > 0).mean() > 0.99):
+            fail(f"[{tag}] DM speeds not finite or zero")
+        say(f"[{tag}] {hdr.npart[1]} DM particles, no gas; speeds (median, "
+            f"max) {float(np.median(v)):.6g}, {float(v.max()):.6g} km/s")
+    return launches, recorded
+
+
+def run_m4(torch, sp, cp, tmp):
+    """The 1e6 par with sph_kernel=m4 on both engines (``run_variant``),
+    then each kernel record's first M4 main-path call held against its
+    plain version with step 3's tolerances, timed and bounded
+    (``time_on_main_path_inputs``).  Fails unless the two runs launched
+    each of the five kernels.  Returns (launches, results) by record."""
+    launches, recorded = {}, {}
+    for engine in ("stream", "classed"):
+        run_launches, run_recorded = run_variant(
+            torch, sp, cp, tmp, f"m4 {engine}", engine, ("sph_kernel=m4",))
+        for name, _, _ in KERNELS:
+            if run_launches.get(name, 0) > 0 and name in run_recorded:
+                launches[name] = run_launches[name]
+                recorded[name] = run_recorded[name]
+    missing = set(LIBS) - {lib for name, lib, _ in KERNELS
+                           if name in recorded}
+    if missing:
+        fail(f"the M4 main paths launched {sorted(missing)} no time")
+    say(f"[m4] records on the M4 main paths {sorted(recorded)}; not on "
+        f"them {sorted({n for n, _, _ in KERNELS} - set(recorded))}")
+    for name, (_, kw) in recorded.items():
+        if kw.get("kernel") != "m4":
+            fail(f"[m4] {name}'s first call ran kernel={kw.get('kernel')}")
+    res = time_on_main_path_inputs(torch, sp, cp, recorded,
+                                   tag="m4 main-path")
+    return launches, res
+
+
+def run_variants(torch, sp, cp, tmp, t0):
+    """Step 9: presets 1 (both engines) and 3, the M4 main paths and the
+    flag variants.  Returns ``run_m4``'s (launches, results)."""
+    for n, engine in PRESET_RUNS:
+        run_preset(torch, sp, cp, tmp, n, engine)
+        t0 = phase(f"9: config {n}, engine={engine}", t0)
+    m4 = run_m4(torch, sp, cp, tmp)
+    t0 = phase("9: the M4 main paths and their kernels", t0)
+    for tag, engine, tokens, par_lines in VARIANTS:
+        run_variant(torch, sp, cp, tmp, tag, engine, tokens, par_lines)
+        t0 = phase(f"9: {tag}, engine={engine}", t0)
+    return m4
+
+
 def main():
     import argparse
     import torch
@@ -1928,6 +2173,8 @@ def main():
         loops, stage_rows, sharded_calls = run_sharded(
             torch, sp, cp, tmp, single_card_errs["stream", SHARDED_NTOTAL])
         t0 = phase("8: the sharded path", t0)
+        m4_launches, m4_res = run_variants(torch, sp, cp, tmp, t0)
+        t0 = phase("9: the variant slice", t0)
     parent = None
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()
@@ -1959,6 +2206,13 @@ def main():
         if k["name"] in sharded_calls:
             k["sharded_call_max_abs_err"], k["sharded_call_ms"] = \
                 sharded_calls[k["name"]]
+        # step 9: the record's M4 instantiation on the first call of the
+        # 1e6 M4 main paths (null where that path does not launch it)
+        m4 = m4_res.get(k["name"], {})
+        k["m4_launches"] = m4_launches.get(k["name"], 0)
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by"):
+            k[f"m4_{key}"] = m4.get("err" if key == "max_abs_err" else key)
     for k in record["kernels"]:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

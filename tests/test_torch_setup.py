@@ -122,11 +122,14 @@ def _run(code, **env):
 
 def test_port_imports_no_jax():
     """Every module of the port, found by walking the package, imports
-    neither JAX nor the JAX package."""
+    neither JAX nor the JAX package; nor do its last two ported
+    functions, morton_keys and linear_eval."""
     code = ("import pkgutil, importlib, sys, toycluster_tpu_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "p.__name__ + '.') if not m.name.endswith('__main__')]; "
             "[importlib.import_module(m) for m in mods]; "
+            "from toycluster_tpu_torch.ops.keys import morton_keys; "
+            "from toycluster_tpu_torch.ops.interp import linear_eval; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'toycluster_tpu' "
             "or m.startswith('toycluster_tpu.')]; "
@@ -137,7 +140,8 @@ def test_port_imports_no_jax():
     assert bad == []
     for name in ("parallel.mesh", "parallel.wvt_shard", "parallel.stages",
                  "run_configs", "utils.profiling", "utils.memory",
-                 "utils.counter_rng", "pipeline", "ops.stream_pair"):
+                 "utils.counter_rng", "pipeline", "ops.stream_pair",
+                 "ops.keys", "ops.interp"):
         assert f"toycluster_tpu_torch.{name}" in mods
 
 

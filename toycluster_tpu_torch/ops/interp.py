@@ -4,7 +4,8 @@ JAX counterpart: ``toycluster_tpu/ops/interp.py``.  Tables are built on
 the host in float64 (utils/splines.py) and moved to the device as a
 ``SplineTable``; evaluation is searchsorted plus the natural cubic
 spline formula, vectorised over the queries (the reference calls
-gsl_spline_eval per particle).
+gsl_spline_eval per particle).  ``linear_eval`` is ``jnp.interp``'s
+counterpart for monotone tables; the pipeline does not call it.
 """
 
 from __future__ import annotations
@@ -67,3 +68,20 @@ def batched_spline_eval(table: SplineTable, hid, xq):
     return (A * flat_gather(y, hid, i) + B * flat_gather(y, hid, i + 1)
             + ((A ** 3 - A) * flat_gather(m2, hid, i)
                + (B ** 3 - B) * flat_gather(m2, hid, i + 1)) * h * h / 6.0)
+
+
+def linear_eval(xs, ys, xq):
+    """Piecewise-linear interpolation of the table (xs, ys) at xq, the
+    counterpart of ``jnp.interp(xq, xs, ys)``: xs ascending, queries
+    below xs[0] take ys[0] and above xs[-1] take ys[-1], an interval
+    narrower than float spacing takes its left value."""
+    i = torch.clamp(torch.searchsorted(xs, xq.contiguous(), right=True), 1,
+                    xs.shape[0] - 1)
+    x0, y0 = xs[i - 1], ys[i - 1]
+    dx = xs[i] - x0
+    flat = dx.abs() <= torch.finfo(xs.dtype).eps ** 2  # spacing(eps)
+    t = (xq - x0) / torch.where(flat, torch.ones_like(dx), dx)
+    # one fused multiply-add, as XLA evaluates jnp.interp's y0 + t * dy
+    f = torch.where(flat, y0, torch.addcmul(y0, t, ys[i] - y0))
+    f = torch.where(xq < xs[0], ys[0], f)
+    return torch.where(xq > xs[-1], ys[-1], f)

@@ -1,6 +1,7 @@
 """Space-filling-curve keys.
 
-JAX counterpart: ``toycluster_tpu/ops/keys.py``.  A 30-bit Hilbert key
+JAX counterpart: ``toycluster_tpu/ops/keys.py``.  A 30-bit Morton key
+(``morton_keys``, no caller in the pipeline) and a 30-bit Hilbert key
 (Skilling's transpose algorithm, branch-free over the particle axis) in
 int32 bit operations, and a stable argsort, in place of the reference's
 128-bit Peano-Hilbert keys and heapsort (peano.c:46-126, sort.c:185-195).
@@ -24,6 +25,18 @@ def _expand_bits10(v):
     v = (v | (v << 4)) & 0x030C30C3
     v = (v | (v << 2)) & 0x09249249
     return v
+
+
+def morton_keys(pos, boxsize):
+    """30-bit Morton key per particle for positions in [0, boxsize)^3:
+    10 bits an axis, x most significant in each bit triplet.  Positions
+    outside the box clamp to the edge cells.  Returned as int64, so the
+    top bit of a 32-bit word never turns a key negative."""
+    scale = (1 << KEY_BITS) / boxsize
+    cell = torch.clamp(torch.floor(pos * scale), 0,
+                       (1 << KEY_BITS) - 1).to(torch.int64)
+    return ((_expand_bits10(cell[:, 0]) << 2)
+            | (_expand_bits10(cell[:, 1]) << 1) | _expand_bits10(cell[:, 2]))
 
 
 def _axes_to_transpose(x, y, z, bits):
