@@ -145,6 +145,21 @@ parent).
    records when a WVT build had far-tail rows, no stream_wvt on the
    classed engine and, without gas, no kernel at all; the DM-only
    snapshot holds no gas and finite, nonzero DM speeds.
+10. Speculative dispatch of the WVT loop: the 1e6 par on both engines and
+   config 4 at Ntotal 1e7 (stream engine), each with TOYCLUSTER_SPECULATE
+   at 1 and at 0, through ``make_ics(device="cuda", check=True)`` with the
+   gates of step 4 (the 1e6 par) or step 5 (config 4) and the snapshot,
+   then again under the profiler (``toycluster_tpu_torch.trace``).  From
+   the build on, every speculating WVT run of the script runs the window
+   between queuing iteration it+1 and reading iteration it's scalars
+   under ``torch.cuda.set_sync_debug_mode("error")`` (``wvt.SYNC_CHECK``):
+   a host sync there fails the run.  Prints per run the iterations, the
+   iterations queued ahead, adopted and dropped, the loop's seconds and
+   updates/s, and the device's idle share of the traced WVT loop and of
+   the traced run; the speculating 1e6 stream and config-4 runs must
+   adopt a queued iteration, no run at 0 may queue one.  Then preset 1
+   (stream engine) at both settings, with step 9's gate against the JAX
+   package's record and its first and final err_mean printed beside it.
 
 Prints the wall time of each phase, the kernel record (with each record's
 M4 numbers of step 9 as ``m4_*`` keys) and the card line before the last
@@ -971,7 +986,9 @@ def report_run(tag, t0, fell=True):
         fail(f"err_mean did not fall: {errs}")
     say(f"[{tag}] wvt: {done[0]['iterations']} iterations in "
         f"{done[0]['seconds']:.3f} s = "
-        f"{done[0]['particle_updates_per_s']:.6g} particle updates/s")
+        f"{done[0]['particle_updates_per_s']:.6g} particle updates/s; "
+        f"iterations queued ahead {done[0]['speculated']}, adopted "
+        f"{done[0]['adopted']}, dropped {done[0]['dropped']}")
     frac = sph.last_contract_frac
     say(f"[{tag}] neighbour contract fraction {frac}")
     if not frac >= 0.999:
@@ -2106,6 +2123,112 @@ def run_variants(torch, sp, cp, tmp, t0):
     return m4
 
 
+# ------------------------------------------ step 10: speculative dispatch
+
+# the runs of step 10, each with TOYCLUSTER_SPECULATE at 1 and at 0:
+# (tag, engine, config-4 at this Ntotal or None for the 1e6 par)
+SPEC_RUNS = (("1e6 par stream", "stream", None),
+             ("1e6 par classed", "classed", None),
+             ("config-4 1e7 stream", "stream", 10_000_000))
+# the runs whose speculating half must adopt a queued iteration (the
+# classed 1e6 par has far-tail rows at every build: nothing is queued)
+SPEC_MUST_ADOPT = ("1e6 par stream", "config-4 1e7 stream")
+
+
+def spec_run(torch, sp, cp, tmp, tag, engine, ntotal):
+    """One run of step 10 through ``make_ics(device="cuda", check=True)``
+    with step 4's gates (the 1e6 par: the engine's kernels, the contract,
+    the fall of err_mean, the snapshot) or step 5's (config 4:
+    ``check_config4`` and the snapshot), then the same configuration
+    again under the profiler (``trace.trace_make_ics``).  Returns the
+    row: iterations, queued ahead, adopted, dropped, loop s, updates/s,
+    the device's idle share of the WVT loop's span and of the run."""
+    from toycluster_tpu_torch import trace
+    from toycluster_tpu_torch.pipeline import make_ics
+    out = Path(tmp) / "IC_spec"
+    cfg = (par_config(output_file=str(out)) if ntotal is None
+           else config4(ntotal, out))
+    (scene, parts), launches, totals, _, wall, t0 = counted(
+        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
+                                        check=True), record=False)
+    say(f"[{tag}] wall {wall:.3f} s; launches {launches}")
+    if ntotal is None:
+        need = (("stream_wvt", "stream_curl") if engine == "stream" else
+                CLASSED_NAMES)
+        for name in need:
+            if launches[name] <= 0:
+                fail(f"{tag}: {name} launched no time")
+        recs = report_run(tag, t0)
+    else:
+        recs = check_config4(torch, tag, cfg, engine, scene, parts, totals,
+                             t0)
+    del parts
+    check_snapshot(out, cfg.ntotal)
+    out.unlink()
+    done = [r for r in recs if r["stage"] == "wvt_done"][0]
+    drops = [(r["it"], r["reason"]) for r in recs
+             if r["stage"] == "wvt_drop"]
+    tr = trace.trace_make_ics(cfg, engine)
+    row = dict(iterations=done["iterations"], speculated=done["speculated"],
+               adopted=done["adopted"], dropped=done["dropped"],
+               loop_s=done["seconds"],
+               updates_per_s=done["particle_updates_per_s"],
+               wvt_idle=tr["wvt_idle"], run_idle=tr["idle"],
+               traced_wvt_s=tr["wvt_wall"], traced_wvt_busy=tr["wvt_busy"],
+               errs=[r["err_mean"] for r in recs if r["stage"] == "wvt"])
+    say(f"[{tag}] drops (it, reason) {drops}; traced run: WVT span "
+        f"{tr['wvt_wall']:.6f} s, busy {tr['wvt_busy']:.6f} s, idle share "
+        f"{tr['wvt_idle']:.6f}; run {tr['wall']:.6f} s, idle share "
+        f"{tr['idle']:.6f}")
+    return row
+
+
+def run_speculation(torch, sp, cp, tmp, t0):
+    """Step 10: SPEC_RUNS with TOYCLUSTER_SPECULATE at 1 and at 0
+    (``spec_run``), the WVT loop's window between queuing an iteration
+    and reading the last one's scalars under the sync check (a host sync
+    there raises); the speculating run of each SPEC_MUST_ADOPT scene must
+    adopt a queued iteration, no run at 0 may queue one; then preset 1
+    at both settings against the JAX package's record."""
+    import os
+    from toycluster_tpu_torch.models import wvt
+    if not wvt.SYNC_CHECK:
+        fail("the sync check of the speculation window is off")
+    rows = {}
+    try:
+        for tag, engine, ntotal in SPEC_RUNS:
+            for spec in (1, 0):
+                os.environ["TOYCLUSTER_SPECULATE"] = str(spec)
+                rows[tag, spec] = spec_run(torch, sp, cp, tmp,
+                                           f"{tag} speculate={spec}",
+                                           engine, ntotal)
+                t0 = phase(f"10: {tag}, TOYCLUSTER_SPECULATE={spec}", t0)
+        for spec in (1, 0):
+            os.environ["TOYCLUSTER_SPECULATE"] = str(spec)
+            run_preset(torch, sp, cp, tmp, 1, "stream")
+            t0 = phase(f"10: config 1, TOYCLUSTER_SPECULATE={spec}", t0)
+    finally:
+        os.environ.pop("TOYCLUSTER_SPECULATE", None)
+    say("step 10 (WVT loop; idle shares from the traced second run): "
+        "run, speculate, iterations, queued ahead, adopted, dropped, loop "
+        "s, updates/s, traced WVT span s, its device busy s, idle share of "
+        "the WVT span, of the run")
+    for (tag, spec), r in rows.items():
+        say(f"  {tag} | {spec} | {r['iterations']} | {r['speculated']} | "
+            f"{r['adopted']} | {r['dropped']} | {r['loop_s']:.6f} | "
+            f"{r['updates_per_s']:.6g} | {r['traced_wvt_s']:.6f} | "
+            f"{r['traced_wvt_busy']:.6f} | {r['wvt_idle']:.6f} | "
+            f"{r['run_idle']:.6f}")
+        if spec == 0 and r["speculated"]:
+            fail(f"{tag}: TOYCLUSTER_SPECULATE=0 queued {r['speculated']}")
+        if spec == 1 and tag in SPEC_MUST_ADOPT and not r["adopted"] > 0:
+            fail(f"{tag}: no queued iteration was adopted")
+    for tag, _, _ in SPEC_RUNS:
+        same = rows[tag, 1]["errs"] == rows[tag, 0]["errs"]
+        say(f"[{tag}] err_mean trajectory the same at both settings: {same}")
+    return t0
+
+
 def main():
     import argparse
     import torch
@@ -2145,6 +2268,11 @@ def main():
                 say(f"  nvcc {name}: {line.strip()}")
 
     t0 = phase("build", t0)
+    # every speculating WVT run of this script checks that the window
+    # between queuing an iteration and reading the last one's scalars
+    # holds no host sync (step 10 prints the counts)
+    from toycluster_tpu_torch.models import wvt
+    wvt.SYNC_CHECK = True
     check_kernels_on_cusp(torch, sp, cp, torch.device("cuda"))
     t0 = phase("kernels against plain versions on the cusp", t0)
 
@@ -2175,6 +2303,9 @@ def main():
         t0 = phase("8: the sharded path", t0)
         m4_launches, m4_res = run_variants(torch, sp, cp, tmp, t0)
         t0 = phase("9: the variant slice", t0)
+        t10 = t0
+        run_speculation(torch, sp, cp, tmp, t0)
+        t0 = phase("10: speculative dispatch", t10)
     parent = None
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()

@@ -824,3 +824,26 @@ def test_sharded_step_on_one_nccl_rank(dev, mode):
         return d - box * np.round(d / box)
     a, b = disp(r["pos"]), disp(g["pos"])
     np.testing.assert_allclose(b, a, rtol=2e-4, atol=1e-6 * np.abs(a).max())
+
+
+def test_speculating_loop_has_no_host_sync_in_its_window(dev, monkeypatch):
+    """The 1e6 par on the stream engine with the window between queuing
+    iteration it+1 and reading it's scalars under the sync check
+    (``wvt.SYNC_CHECK``: a host sync there raises): iterations are queued
+    ahead and adopted; with TOYCLUSTER_SPECULATE=0 none is queued."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.models import sph, wvt
+    from toycluster_tpu_torch.pipeline import make_ics
+    monkeypatch.setattr(wvt, "SYNC_CHECK", True)
+    cfg = parse_par_file(str(_PAR))
+    done = {}
+    for spec in ("1", "0"):
+        monkeypatch.setenv("TOYCLUSTER_SPECULATE", spec)
+        logs = []
+        make_ics(cfg, device="cuda", write=False,
+                 log=lambda stage, **kw: logs.append((stage, kw)))
+        done[spec] = [kw for s, kw in logs if s == "wvt_done"][0]
+        assert sph.last_contract_frac >= 0.999
+    assert done["1"]["speculated"] > 0 and done["1"]["adopted"] > 0
+    assert done["0"]["speculated"] == done["0"]["adopted"] == 0
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -79,16 +79,20 @@ def uniform_beta(scene) -> float | None:
     return betas.pop() if len(betas) == 1 else None
 
 
+def gas_halos(ha: HaloArrays):
+    """Indices of the halos with gas (a host read of their masses)."""
+    return tuple(j for j, m in enumerate(ha.mass_gas.tolist()) if m > 0)
+
+
 def global_density_model(pos_box, ha: HaloArrays, boxsize, cool_core=None,
-                         beta=None):
+                         beta=None, halos=None):
     """Max over gas-bearing halos of the beta-model density at a box
-    position (wvt_relax.c:227-256)."""
+    position (wvt_relax.c:227-256).  ``halos``: their indices,
+    ``gas_halos(ha)``, from a caller that read them already (without
+    it each call reads the masses on the host)."""
     boxhalf = boxsize / 2.0
     rho = torch.zeros_like(pos_box[..., 0])
-    mass_gas = ha.mass_gas.tolist()
-    for j in range(ha.n_halos):
-        if mass_gas[j] <= 0:
-            continue
+    for j in gas_halos(ha) if halos is None else halos:
         r = torch.linalg.vector_norm(pos_box - (ha.d_com[j] + boxhalf),
                                      dim=-1)
         rho = torch.maximum(rho, gas_density(r, ha, j, cool_core, beta=beta))
@@ -318,11 +322,13 @@ def expand_tail_rows(sb_rows, nb):
         sb_rows.shape[0], -1)
 
 
-def run_classed(state: NeighbourState, fn, tail_fn=None):
+def run_classed(state: NeighbourState, fn, tail_fn=None, sels=None):
     """Run ``fn(ids, rows, cnt, m)`` per count class (ids (S,), rows
     (S, m) block lists, cnt (S,)) and, on a state with far-tail rows,
     ``tail_fn(ids, sb_rows, sb_cnt)``; each returns a tuple of (S, 128,
-    ...) tensors, scattered here into (nb, 128, ...) tensors."""
+    ...) tensors, scattered here into (nb, 128, ...) tensors.  ``sels``:
+    ``classed_selections(state)`` from a caller that made it already
+    (making it reads the counts on the host)."""
     outs = None
 
     def scatter(ids, res):
@@ -333,7 +339,7 @@ def run_classed(state: NeighbourState, fn, tail_fn=None):
         for o, r in zip(outs, res):
             o[ids.long()] = r
 
-    for m, ids in classed_selections(state):
+    for m, ids in classed_selections(state) if sels is None else sels:
         idc = ids.long()
         rows = state.cand.idx[idc, :m].contiguous()
         cnt = torch.clamp(state.cand.count[idc], max=m)

@@ -20,10 +20,26 @@ whole candidate set on chip), ``solve_density`` then
 against the build cap, rebuilds wherever the stream engine would
 refresh, and rebuilds every iteration while its structure has far-tail
 rows.
+
+Dispatch, as in the JAX loop.  ``iterate`` leaves every result on the
+device: the statistics, the step (an fp32 0-d tensor, shrunk on the
+device) and the accept-path cap ratchet.  The loop reads one batch of
+scalars per iteration, through a non-blocking copy into pinned host
+memory and a CUDA event recorded after it.  Before it waits on that
+event it queues the next iteration from this one's device outputs
+(speculative dispatch), unless a rebuild, a list refresh or a stop is
+predicted; the queued iteration is adopted when its index comes up and
+dropped on a retry, a build, a refresh or a stop.  A plain ``.item()``
+after the queuing would wait for the queued iteration as well (one
+stream runs in order), so the window between queuing the next iteration
+and reading this one's scalars holds no host sync.  Speculation is on
+unless TOYCLUSTER_SPECULATE=0 and only up to SPECULATE_MAX_GAS gas
+particles (the JAX package's switch and limit).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -63,6 +79,17 @@ BITS_MARGIN_WARM = 1.02
 BITS_MARGIN_COLD = 1.25
 # widest count class the count-class engine runs through fused_wvt
 FUSED_WIDTH = sph_mod.CLASS_EDGES[0]
+# no speculative dispatch above this many gas particles (the JAX
+# package's limit: the queued iteration's outputs add to the loop's
+# standing memory; the speculative margin changes which lanes saturate)
+SPECULATE_MAX_GAS = 20_000_000
+# with True, the window between queuing the next iteration and reading
+# this one's scalars runs under torch.cuda.set_sync_debug_mode("error"):
+# a host sync there raises (the checks on a card set it)
+SYNC_CHECK = False
+# the scalars an iteration hands the host, in this order (float64)
+SCALARS = ("err_max", "err_mean", "n_sat", "dmax_rel", "p999_rel",
+           "n_contract", "step_new")
 
 
 def percentile(x, q):
@@ -79,6 +106,35 @@ def percentile(x, q):
 
 def _drift_budget(kernel):
     return DRIFT_BUDGET if kernel == "wc6" else DRIFT_BUDGET_HARD_EDGE
+
+
+def speculation_enabled(n_gas):
+    """The JAX package's switch: TOYCLUSTER_SPECULATE (default 1), and at
+    most SPECULATE_MAX_GAS gas particles."""
+    return (int(os.environ.get("TOYCLUSTER_SPECULATE", "1")) != 0
+            and n_gas <= SPECULATE_MAX_GAS)
+
+
+def speculation_blocked(it, max_iter, its_since_build, drift_acc,
+                        sort_drift_acc, drift_inc_last, drift_budget, tail,
+                        err_diff_last, err_limit):
+    """Why iteration it+1 is not queued before the scalars of iteration
+    it are read, or None: "end" at the last iteration; "rebuild" where a scheduled
+    rebuild, a list refresh (drift budget), a sorting rebuild (sort-drift
+    budget; both budgets against 1.5x the last increment) or the
+    far-tail rows' rebuild is predicted; "stop" where the convergence
+    stop is predicted (it >= 25 and the last err_diff under twice the
+    limit).  The JAX loop's predict_rebuild and predict_stop."""
+    if it >= max_iter:
+        return "end"
+    if (its_since_build + 1 >= REBUILD_EVERY
+            or drift_acc + 1.5 * drift_inc_last > drift_budget
+            or sort_drift_acc + 1.5 * drift_inc_last > SORT_DRIFT_BUDGET
+            or tail is not None):
+        return "rebuild"
+    if it >= 25 and err_diff_last < err_limit * 2.0:
+        return "stop"
+    return None
 
 
 def _accept_band(n_gas, it=None):
@@ -121,6 +177,9 @@ def _warm_ratio(rho_model, rho_model_prev):
 class _Loop:
     """Constants of one relaxation."""
 
+    # (state, its classed selections), made once a state (``selections``)
+    _sels = (None, None)
+
     def __init__(self, scene: Scene, ha: HaloArrays, n_gas: int,
                  engine: str):
         cfg = scene.config
@@ -135,12 +194,24 @@ class _Loop:
                           if cfg.double_beta_cool_cores else None)
         self.beta = sph_mod.uniform_beta(scene)
         self.h_hard = sph_mod.hard_h_cap(self.boxsize, n_gas)
+        # read once here: the model density of every iteration then
+        # needs no host read of the halo masses
+        self.gas_halos = sph_mod.gas_halos(ha)
 
     def model_fields(self, pos_gas):
         return _model_fields_from_rho(
             sph_mod.global_density_model(pos_gas, self.ha, self.boxsize,
-                                         self.cool_core, beta=self.beta),
+                                         self.cool_core, beta=self.beta,
+                                         halos=self.gas_halos),
             self.mpart, self.desnngb)
+
+    def selections(self, state):
+        """``sph.classed_selections`` of ``state``, made at its first
+        iteration (it reads the counts on the host) and kept for the
+        iterations after, speculative ones included."""
+        if self._sels[0] is not state:
+            self._sels = (state, sph_mod.classed_selections(state))
+        return self._sels[1]
 
     def solve_classed(self, state, pos_pad, h0_s, cap_s, hm_s, hm_src,
                       valid):
@@ -200,13 +271,19 @@ class _Loop:
             lambda ids, rows, cnt, m: (fused(ids, rows, cnt)
                                        if m <= FUSED_WIDTH else
                                        two_pass(ids, rows, False)),
-            lambda ids, sb_rows, sb_cnt: two_pass(ids, sb_rows, True))
+            lambda ids, sb_rows, sb_cnt: two_pass(ids, sb_rows, True),
+            sels=self.selections(state))
 
     def iterate(self, state, pos_gas, h_prev, rhom_prev, sat_mask,
                 margin_w, fac_gas, step, err_last, it):
         """One WVT iteration on the current structure: model density,
-        metric, the density solve + displacement, error statistics and
-        the speculative move.  Returns a dict of results."""
+        metric, the density solve + displacement, error statistics, the
+        step shrink, the move and the accept-path cap ratchet, all on the
+        device (``step`` and ``err_last`` are fp32 0-d tensors).  Returns
+        a dict of device tensors: the lane results, err_mean and step_new
+        (0-d, for the next call), fac_new, and ``scalars``, the float64
+        (7,) tensor of SCALARS that the loop reads.  Queues work and
+        reads nothing back, so it can run while the host waits."""
         n_gas = self.n_gas
         nb = state.index.n_blocks
         n_padded = nb * blk.BLOCK
@@ -260,31 +337,74 @@ class _Loop:
         # the neighbour contract |wkNgb - DESNNGB| < NNGBDEV (sph.c:159-166)
         n_contract = ((torch.abs(wk - self.desnngb) < const.NNGBDEV)
                       & valid).sum()
-        stats = torch.stack([
-            err.max(), err.mean(), n_sat_d.to(torch.float32), drel.max(),
-            percentile(row_drel, 99.9),
-            n_contract.to(torch.float32)]).tolist()
-        err_max, err_mean, n_sat, dmax_rel, p999_rel, n_contract = stats
-        n_sat = int(n_sat)
-        # step shrink + move (wvt_relax.c:94-101 ordering)
+        err_mean = err.mean()
+        # step shrink + move (wvt_relax.c:94-101 ordering), in fp32
         err_diff = (err_last - err_mean) / err_mean
-        step_new = step * 0.8 if (err_diff < 0.01 and it > 1) else step
+        step_new = (torch.where(err_diff < 0.01, step * 0.8, step)
+                    if it > 1 else step)
         pos_new = pos_gas + delta[:n_gas] * (step_new * self.boxsize)
         pos_new = pos_new - torch.floor(pos_new / self.boxsize) * self.boxsize
-        # accept-path cap ratchet
+        # accept-path cap ratchet: applied where the host will accept
+        # this iteration's capped h, so a queued it+1 starts from it
         band = _accept_band(n_gas, 0) if it < 3 else _accept_band(n_gas)
-        if 0 < n_sat <= band:
-            fac_new = torch.where(
-                hsml[:n_gas] >= h_cap_pad[:n_gas] * 0.999,
-                torch.clamp(fac_gas * 1.6, max=FAC_MAX), fac_gas)
-        else:
-            fac_new = fac_gas
+        accept = (n_sat_d > 0) & (n_sat_d <= band)
+        fac_new = torch.where(
+            accept & (hsml[:n_gas] >= h_cap_pad[:n_gas] * 0.999),
+            torch.clamp(fac_gas * 1.6, max=FAC_MAX), fac_gas)
+        scalars = torch.stack([x.to(torch.float64) for x in (
+            err.max(), err_mean, n_sat_d, drel.max(),
+            percentile(row_drel, 99.9), n_contract, step_new)])
         return dict(rho=rho[:n_gas], hsml=hsml[:n_gas], vf=vf[:n_gas],
-                    pos_new=pos_new, rho_model=rho_model, err_max=err_max,
-                    err_mean=err_mean, n_sat=n_sat, dmax_rel=dmax_rel,
-                    p999_rel=p999_rel, step_new=step_new, fac_new=fac_new,
-                    saturated=saturated[:n_gas],
-                    contract_frac=n_contract / n_gas)
+                    pos_new=pos_new, rho_model=rho_model, err_mean=err_mean,
+                    step_new=step_new, fac_new=fac_new,
+                    saturated=saturated[:n_gas], scalars=scalars)
+
+    def speculate(self, state, out, margin_w, sat_false, it):
+        """Iteration ``it`` queued from the previous iteration's device
+        outputs ``out``: the JAX loop's speculative call (its margin
+        ``margin_w`` without the cold floor, no saturation mask)."""
+        return self.iterate(state, out["pos_new"], out["hsml"],
+                            out["rho_model"], sat_false, margin_w,
+                            out["fac_new"], out["step_new"], out["err_mean"],
+                            it)
+
+
+class _HostRead:
+    """One iteration's scalars to the host: a non-blocking copy into a
+    pinned buffer and a CUDA event recorded right after it (``post``),
+    waited on alone (``read``), so work queued between the two keeps the
+    card busy.  On the CPU the copy is synchronous."""
+
+    def __init__(self, device):
+        cuda = device.type == "cuda"
+        self.buf = torch.empty((len(SCALARS),), dtype=torch.float64,
+                               pin_memory=cuda)
+        self.event = torch.cuda.Event() if cuda else None
+
+    def post(self, scalars):
+        self.buf.copy_(scalars, non_blocking=self.event is not None)
+        if self.event is not None:
+            self.event.record()
+
+    def read(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return dict(zip(SCALARS, self.buf.tolist()))
+
+
+@contextlib.contextmanager
+def _sync_free(device, on):
+    """With ``on`` and SYNC_CHECK on a CUDA device, a host sync in the
+    block raises."""
+    if not (on and SYNC_CHECK and device.type == "cuda"):
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
 def _sync(device):
@@ -335,7 +455,13 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     err_diff_last, it), written every ``checkpoint_every`` iterations
     and read at the start when the file exists; the run then goes on at
     the iteration after the saved one.  The file holds no h, cap factors
-    or order, so a resumed run starts cold."""
+    or order, so a resumed run starts cold.  A checkpoint written while
+    the next iteration is queued holds the saved iteration's state.
+
+    Dispatch as in the JAX loop (module docstring): ``wvt_done`` counts
+    the iterations queued ahead (``speculated``), the ones adopted and
+    the ones dropped, and each drop is logged (``wvt_drop``, with its
+    reason)."""
     global last_contract_frac
     sph_mod.check_engine(engine)
     cfg = scene.config
@@ -376,11 +502,16 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
             checkpoint_path, n_gas, dev)
         it0 = it_saved + 1
         log("wvt_resume", it=it0, step=step)
+    # the step and err_last as the device carries them (fp32); the host
+    # keeps their values for the log, the stop rules and checkpoints
+    step_d = torch.tensor(step, dtype=torch.float32, device=dev)
+    err_last_d = torch.tensor(err_last, dtype=torch.float32, device=dev)
 
     state = None
     its_since_build = 0
     drift_acc = 0.0        # since the last list refresh or build
     sort_drift_acc = 0.0   # since the last full (re-sorting) build
+    drift_inc_last = 0.0   # the last iteration's increment of drift_acc
     fresh = False
     n_iter = 0
     # per-lane cap factor (loop order, permuted at each build), ratcheted
@@ -401,16 +532,30 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     margin_warm = BITS_MARGIN_WARM
     quiet_iters = 0
     drift_budget = _drift_budget(cfg.sph_kernel)
+    # speculative dispatch: (it, outputs) of the iteration queued ahead
+    speculate = speculation_enabled(n_gas)
+    pending = None
+    n_spec = n_adopted = n_dropped = 0
+    host = _HostRead(dev)
+
+    def drop(reason, it):
+        nonlocal n_dropped
+        if pending is not None:
+            n_dropped += 1
+            log("wvt_drop", it=pending[0], at=it, reason=reason)
+        return None
 
     for it in range(it0, max_iter + 1):
         if (its_since_build >= REBUILD_EVERY
                 or sort_drift_acc > SORT_DRIFT_BUDGET
                 or (state is not None and state.tail is not None)):
             state = None
+            pending = drop("build", it)
         elif drift_acc > drift_budget and state is not None:
             # drift spent the lists' radius slack: refresh the lists only
             # (the sort and block membership stay valid); the count-class
             # engine rebuilds
+            pending = drop("refresh", it)
             if engine == "stream" and rho_model_l is not None:
                 t_refresh = time.perf_counter()
                 hm_w = (_metric_hsml(rho_model_l, mpart, desnngb)
@@ -460,12 +605,30 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                     tail_rows=(0 if state.tail is None
                                else int(state.tail[0].shape[0])))
 
-            # the cold-start / big-move phase keeps the cold margin
-            mw = (max(margin_warm, BITS_MARGIN_COLD)
-                  if err_last > 0.15 else margin_warm)
-            out = L.iterate(state, pos_gas, h_prev, rhom_prev, sat_mask, mw,
-                            fac_gas, step, err_last, it)
-            n_sat = out["n_sat"]
+            if pending is not None and pending[0] == it:
+                out = pending[1]
+                n_adopted += 1
+            else:
+                # the cold-start / big-move phase keeps the cold margin
+                mw = (max(margin_warm, BITS_MARGIN_COLD)
+                      if err_last > 0.15 else margin_warm)
+                out = L.iterate(state, pos_gas, h_prev, rhom_prev, sat_mask,
+                                mw, fac_gas, step_d, err_last_d, it)
+            pending = None
+            # queue it+1 from this iteration's device outputs, then read
+            # this iteration's scalars
+            queue = speculate and speculation_blocked(
+                it, max_iter, its_since_build, drift_acc, sort_drift_acc,
+                drift_inc_last, drift_budget, state.tail, err_diff_last,
+                err_limit) is None
+            with _sync_free(dev, queue):
+                host.post(out["scalars"])
+                if queue:
+                    pending = (it + 1, L.speculate(state, out, margin_warm,
+                                                   sat_false, it + 1))
+                    n_spec += 1
+            sc = host.read()
+            n_sat = int(sc["n_sat"])
             if n_sat == 0:
                 fac_gas = out["fac_new"]
                 break
@@ -476,6 +639,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                 accept_note = n_sat
                 break
             # saturation: retry, growing the cap only for cap-limited lanes
+            pending = drop("retry", it)
             grow_mask = out["hsml"] >= state.h_cap[:n_gas] * 0.999
             n_grow = int(grow_mask.sum())
             sat_mask = out["saturated"]   # lift the margin clamp for these
@@ -502,13 +666,13 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
             quiet_iters = 0
 
         rho_l, hsml_l, vf_l = out["rho"], out["hsml"], out["vf"]
-        last_contract_frac = out["contract_frac"]
+        last_contract_frac = sc["n_contract"] / n_gas
         rho_model_l = out["rho_model"]
         h_prev = hsml_l
         rhom_prev = rho_model_l
-        err_mean = out["err_mean"]
+        err_mean = sc["err_mean"]
         err_diff = (err_last - err_mean) / err_mean
-        log("wvt", it=it, err_max=round(out["err_max"], 4),
+        log("wvt", it=it, err_max=round(sc["err_max"], 4),
             err_mean=round(err_mean, 5), err_diff=round(err_diff, 5),
             step=step, margin=round(margin_warm, 3))
         if accept_note is not None:
@@ -517,19 +681,22 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
         # stopping rules, then adopt the post-shrink move
         if err_diff < err_limit and it > 25:
             fresh = True
+            pending = drop("stop", it)
             break
         if err_diff < 0 and err_diff_last < 0 and it > 10:
             fresh = True
+            pending = drop("stop", it)
             break
-        step = out["step_new"]
-        err_last = err_mean
+        step, step_d = sc["step_new"], out["step_new"]
+        err_last, err_last_d = err_mean, out["err_mean"]
         err_diff_last = err_diff
         pos_gas = out["pos_new"]
         # applied drift against the budgets (both pair ends move)
-        pair_drel = (out["p999_rel"] if cfg.sph_kernel == "wc6"
-                     else out["dmax_rel"])
-        drift_acc += 2.0 * pair_drel * step
-        sort_drift_acc += 2.0 * out["dmax_rel"] * step
+        pair_drel = (sc["p999_rel"] if cfg.sph_kernel == "wc6"
+                     else sc["dmax_rel"])
+        drift_inc_last = 2.0 * pair_drel * step
+        drift_acc += drift_inc_last
+        sort_drift_acc += 2.0 * sc["dmax_rel"] * step
         del out
         if checkpoint_path and (it + 1) % checkpoint_every == 0:
             t_ck = time.perf_counter()
@@ -546,7 +713,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     _sync(dev)
     dt = time.perf_counter() - t_start
     log("wvt_done", iterations=n_iter, seconds=dt,
-        particle_updates_per_s=n_gas * n_iter / dt)
+        particle_updates_per_s=n_gas * n_iter / dt, speculated=n_spec,
+        adopted=n_adopted, dropped=n_dropped)
     return parts, fresh
 
 

@@ -119,7 +119,8 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
     if not scene.dm_only:
         from .models import bfield, sph, temperature, wvt
         prof = profiler(device) if profile_dir else contextlib.nullcontext()
-        with prof:
+        # the span of the WVT loop in a trace (``trace.WVT_SPAN``)
+        with prof, torch.profiler.record_function("wvt_loop"):
             if mesh is not None:
                 parts = _relax_sharded(mesh, scene, ha, parts, engine, log,
                                        wvt_checkpoint)
