@@ -160,6 +160,23 @@ parent).
    adopt a queued iteration, no run at 0 may queue one.  Then preset 1
    (stream engine) at both settings, with step 9's gate against the JAX
    package's record and its first and final err_mean printed beside it.
+11. The WVT loop's iteration programs (``wvt.ITER_PROGRAMS``: each
+   iteration of a list shape replayed as one captured CUDA graph):
+   presets 1 (both engines), the 1e6 par (both engines) and config 4 at
+   Ntotal 1e7 (stream engine), each with the programs on and off at the
+   default speculation, through ``make_ics(device="cuda")``, counted,
+   then again under the profiler.  Every pair must give the same wvt
+   records and relaxed gas (positions, rho, hsml) to the bit and the same
+   launches of every kernel (a replay adds the launches its program
+   captured); every stream run with programs replays one, none is made
+   without them, and in every traced run the device ops of each kernel
+   number its launches (the kernels inside a replayed graph count in
+   the WVT span's busy time).  Prints per run the programs made and
+   replayed, the eager iterations, the capture seconds, the loop's
+   seconds and updates/s, the traced WVT span's idle share and the peak
+   device memory.  Step 6's 1e8 run (5e7 gas, above the JAX package's
+   _LARGE_N) must make no program, and step 5's instrumented second runs
+   run with the programs off (no capture may synchronise).
 
 Prints the wall time of each phase, the kernel record (with each record's
 M4 numbers of step 9 as ``m4_*`` keys) and the card line before the last
@@ -883,9 +900,14 @@ def counted(torch, sp, cp, drive, record=True):
     with ``record=False``, which keeps a large run's inputs from
     outliving it, CUDA events time each such call on the device instead)
     and to count block-list stream_curl launches and each list mode of
-    solve_density and wvt_displacement apart.  Returns (drive's result,
-    launches by record name, launches by kernel, recorded inputs (or the
-    device ms of each call by record name), wall s, start time)."""
+    solve_density and wvt_displacement apart.  A call made while a WVT
+    iteration program is captured launches nothing and is neither
+    counted nor recorded here: the program adds its launches at each
+    replay (``wvt.REPLAYED_LAUNCHES``, all of them block-list calls), so
+    the inputs recorded are those of an eager call.  Returns (drive's
+    result, launches by record name, launches by kernel, recorded inputs
+    (or the device ms of each call by record name), wall s, start
+    time)."""
     from toycluster_tpu_torch.models import bfield, sph, wvt
     from toycluster_tpu_torch.utils import logging as tlog
 
@@ -893,6 +915,8 @@ def counted(torch, sp, cp, drive, record=True):
 
     def recorder(fn, name_of):
         def call(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kw)
             n0 = fn.launches
             name = name_of(kw)
             if name is not None and not record:
@@ -932,6 +956,7 @@ def counted(torch, sp, cp, drive, record=True):
                cp.wvt_displacement, cp.fused_wvt)
     for k in kernels:
         k.launches = 0
+    wvt.REPLAYED_LAUNCHES.clear()
     t0 = time.perf_counter()
     try:
         result = drive()
@@ -939,6 +964,7 @@ def counted(torch, sp, cp, drive, record=True):
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     wall = time.perf_counter() - t0
+    by_name.update(wvt.REPLAYED_LAUNCHES)
     if not record:
         torch.cuda.synchronize()
         recorded = {name: [s.elapsed_time(e) for s, e in evs]
@@ -988,7 +1014,9 @@ def report_run(tag, t0, fell=True):
         f"{done[0]['seconds']:.3f} s = "
         f"{done[0]['particle_updates_per_s']:.6g} particle updates/s; "
         f"iterations queued ahead {done[0]['speculated']}, adopted "
-        f"{done[0]['adopted']}, dropped {done[0]['dropped']}")
+        f"{done[0]['adopted']}, dropped {done[0]['dropped']}; iteration "
+        f"programs made {done[0]['captured']}, replayed "
+        f"{done[0]['replayed']}, eager iterations {done[0]['eager']}")
     frac = sph.last_contract_frac
     say(f"[{tag}] neighbour contract fraction {frac}")
     if not frac >= 0.999:
@@ -1222,14 +1250,19 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     del parts
     check_snapshot(out, ntotal)
     # the per-halo loops' share of each stage, from a second run whose
-    # per-halo calls are each synchronised (its times are not the run's)
+    # per-halo calls are each synchronised (its times are not the run's),
+    # with the WVT iteration programs off: a graph holds the model
+    # density's calls, and no capture may synchronise
+    from toycluster_tpu_torch.models import wvt
     book, restore = timed_halo_loops(torch)
+    wvt.ITER_PROGRAMS = False
     try:
         _, _, _, recorded, wall, t0 = counted(
             torch, sp, cp, lambda: make_ics(cfg, device="cuda",
                                             engine=engine, write=False))
     finally:
         restore()
+        wvt.ITER_PROGRAMS = True
     del recorded
     say(f"[{tag}] instrumented run (every per-halo call synchronised): "
         f"wall {wall:.3f} s")
@@ -1286,6 +1319,13 @@ def run_large(torch, sp, cp, tmp):
         say(f"[{tag}] {name}: device ms a call (CUDA events around the "
             f"wrapper) {[round(m, 3) for m in ms]}")
     recs = check_config4(torch, tag, cfg, "stream", scene, parts, totals, t0)
+    # above the JAX package's _LARGE_N every iteration runs eagerly
+    done = [r for r in recs if r["stage"] == "wvt_done"][0]
+    eager = [r["rule"] for r in recs if r["stage"] == "wvt_eager"]
+    if done["captured"] or done["replayed"] or eager != ["large"]:
+        fail(f"{tag}: iteration programs made {done['captured']}, replayed "
+             f"{done['replayed']}, eager rules {eager}; expected none, "
+             f"none, ['large']")
     saves = [r for r in recs if r["stage"] == "wvt_checkpoint"]
     say(f"[{tag}] checkpoint saves (it, s): "
         f"{[(r['it'], round(r['seconds'], 4)) for r in saves]}")
@@ -2229,6 +2269,125 @@ def run_speculation(torch, sp, cp, tmp, t0):
     return t0
 
 
+# ---------------------------------------- step 11: iteration programs
+
+# the runs of step 11, each with wvt.ITER_PROGRAMS on and off at the
+# default speculation: (tag, engine, "preset1" (run_configs preset 1),
+# "par" (the repository's par, 1e6) or config 4 at this Ntotal)
+PROGRAM_RUNS = (("preset 1 stream", "stream", "preset1"),
+                ("preset 1 classed", "classed", "preset1"),
+                ("1e6 par stream", "stream", "par"),
+                ("1e6 par classed", "classed", "par"),
+                ("config-4 1e7 stream", "stream", 10_000_000))
+# each kernel's device op in a trace holds this in its name
+DEVICE_OPS = {lib: f"{lib}_kernel" for lib in LIBS}
+
+
+def program_run(torch, sp, cp, tmp, engine, what, on):
+    """One run of step 11 through ``make_ics(device="cuda", write=False)``
+    with ``wvt.ITER_PROGRAMS = on``, counted without recording, then the
+    same configuration under the profiler (``trace.trace_make_ics``).
+    Fails unless the traced run's device ops of each kernel number its
+    launches (the kernels of a replayed graph are traced one by one).
+    Returns the row: the WVT record's counts and times, the capture
+    seconds, the traced WVT span's wall, busy and idle share, the peak
+    device memory, the launches by kernel, the stage log's wvt records
+    and the relaxed gas."""
+    from toycluster_tpu_torch import trace
+    from toycluster_tpu_torch.models import wvt
+    from toycluster_tpu_torch.pipeline import make_ics
+    from toycluster_tpu_torch.run_configs import PRESETS
+    from toycluster_tpu_torch.utils import logging as tlog
+    out = Path(tmp) / "IC_programs"
+    cfg = (par_config(**{**PRESETS[1], "output_file": str(out)})
+           if what == "preset1" else
+           par_config(output_file=str(out)) if what == "par" else
+           config4(what, out))
+    wvt.ITER_PROGRAMS = on
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (_, parts), _, totals, _, _, _ = counted(
+            torch, sp, cp, lambda: make_ics(cfg, device="cuda",
+                                            engine=engine, write=False),
+            record=False)
+        peak = torch.cuda.max_memory_allocated()
+        recs = list(tlog.METRICS)
+        tr = trace.trace_make_ics(cfg, engine)
+    finally:
+        wvt.ITER_PROGRAMS = True
+    for lib, n in tr["launches"].items():
+        ops = sum(c for name, (c, _) in tr["ops"].items()
+                  if DEVICE_OPS[lib] in name)
+        if ops != n:
+            fail(f"programs={on}: the trace holds {ops} device ops of {lib}"
+                 f", its counter {n} launches")
+    done = [r for r in recs if r["stage"] == "wvt_done"][0]
+    n_gas = parts.n_gas
+    return dict(
+        captured=done["captured"], replayed=done["replayed"],
+        eager=done["eager"], iterations=done["iterations"],
+        capture_s=sum(r["seconds"] for r in recs
+                      if r["stage"] == "wvt_graph"),
+        keys=[r["key"] for r in recs if r["stage"] == "wvt_graph"],
+        loop_s=done["seconds"],
+        updates_per_s=done["particle_updates_per_s"],
+        wvt_wall=tr["wvt_wall"], wvt_busy=tr["wvt_busy"],
+        wvt_idle=tr["wvt_idle"], peak_gib=peak / 2**30, launches=totals,
+        wvt=[{k: v for k, v in r.items() if k != "t"} for r in recs
+             if r["stage"] == "wvt"],
+        gas=(parts.pos[:n_gas], parts.rho, parts.hsml))
+
+
+def run_programs(torch, sp, cp, tmp):
+    """Step 11: PROGRAM_RUNS with the WVT iteration programs on and off
+    (``program_run``).  Each pair must give the same wvt records and the
+    same relaxed gas (positions, rho, hsml; ``torch.equal``) and the same
+    launches of every kernel; with programs off none is made or replayed;
+    every stream run with them on replays one."""
+    rows = {}
+    for tag, engine, what in PROGRAM_RUNS:
+        for on in (True, False):
+            t = time.perf_counter()
+            rows[tag, on] = program_run(torch, sp, cp, tmp, engine, what,
+                                        on)
+            say(f"[{tag}] programs={on}: {time.perf_counter() - t:.3f} s "
+                f"(a run and a traced run); graph keys "
+                f"{rows[tag, on]['keys']}")
+        on, off = rows[tag, True], rows[tag, False]
+        if on["wvt"] != off["wvt"]:
+            fail(f"{tag}: wvt records differ with programs on and off:\n"
+                 f"{on['wvt']}\n{off['wvt']}")
+        for name, a, b in zip(("positions", "rho", "hsml"), on["gas"],
+                              off["gas"]):
+            if not torch.equal(a, b):
+                fail(f"{tag}: the relaxed gas's {name} differ with programs "
+                     f"on and off")
+        if on["launches"] != off["launches"]:
+            fail(f"{tag}: launches {on['launches']} with programs, "
+                 f"{off['launches']} without")
+        if off["captured"] or off["replayed"]:
+            fail(f"{tag}: programs off made {off['captured']}, replayed "
+                 f"{off['replayed']}")
+        if engine == "stream" and not on["replayed"] > 0:
+            fail(f"{tag}: no iteration program was replayed")
+        say(f"[{tag}] programs on and off: the same {len(on['wvt'])} wvt "
+            f"records, positions, rho and hsml to the bit; launches "
+            f"{on['launches']}")
+        on["gas"] = off["gas"] = None
+    say("step 11 (WVT iteration programs; idle shares from the traced "
+        "second run): run, programs, iterations, made, replayed, eager, "
+        "capture s, loop s, updates/s, traced WVT span s, its device busy "
+        "s, idle share of the WVT span, peak GiB")
+    for (tag, on), r in rows.items():
+        say(f"  {tag} | {'on' if on else 'off'} | {r['iterations']} | "
+            f"{r['captured']} | {r['replayed']} | {r['eager']} | "
+            f"{r['capture_s']:.6f} | {r['loop_s']:.6f} | "
+            f"{r['updates_per_s']:.6g} | {r['wvt_wall']:.6f} | "
+            f"{r['wvt_busy']:.6f} | {r['wvt_idle']:.6f} | "
+            f"{r['peak_gib']:.4f}")
+
+
 def main():
     import argparse
     import torch
@@ -2306,6 +2465,8 @@ def main():
         t10 = t0
         run_speculation(torch, sp, cp, tmp, t0)
         t0 = phase("10: speculative dispatch", t10)
+        run_programs(torch, sp, cp, tmp)
+        t0 = phase("11: iteration programs", t0)
     parent = None
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()

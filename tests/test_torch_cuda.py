@@ -847,3 +847,115 @@ def test_speculating_loop_has_no_host_sync_in_its_window(dev, monkeypatch):
     assert done["1"]["speculated"] > 0 and done["1"]["adopted"] > 0
     assert done["0"]["speculated"] == done["0"]["adopted"] == 0
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+def test_stream_wvt_same_bits_at_a_trimmed_width(dev, kernel):
+    """The kernel on the cusp's lists and on the same lists padded with
+    -1 columns to the sticky trim width (``sph.trim_width``): every
+    output equal to the bit."""
+    from toycluster_tpu_torch.models import sph
+    args, kw, _ = cusp.wvt_inputs(kernel, True, N, device=dev)
+    cand = args[1]
+    width = sph.trim_width(int(args[2].max()), sp.MAX_LIST_WIDTH, {}, 0)
+    width = max(width, 2 * cand.shape[1])
+    wide = torch.cat([cand, torch.full(
+        (cand.shape[0], width - cand.shape[1]), -1, dtype=cand.dtype,
+        device=dev)], dim=1).contiguous()
+    ref = sp.stream_wvt(*args, **kw)
+    got = sp.stream_wvt(args[0], wide, *args[2:], **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def _record_iterations(monkeypatch):
+    """Wrap ``_Loop.iterate`` and ``_Loop.speculate``: every iteration's
+    (loop, state, arguments, outputs, whether a program ran it, whether
+    it was queued ahead)."""
+    from toycluster_tpu_torch.models import wvt
+    calls, window = [], []
+    orig, orig_spec = wvt._Loop.iterate, wvt._Loop.speculate
+
+    def iterate(loop, state, *args):
+        n = loop.replayed
+        out = orig(loop, state, *args)
+        calls.append((loop, state, args, out, loop.replayed > n,
+                      bool(window)))
+        return out
+
+    def speculate(loop, *args):
+        window.append(1)
+        try:
+            return orig_spec(loop, *args)
+        finally:
+            window.pop()
+    monkeypatch.setattr(wvt._Loop, "iterate", iterate)
+    monkeypatch.setattr(wvt._Loop, "speculate", speculate)
+    return calls, orig
+
+
+@pytest.mark.parametrize("engine", ["stream", "classed"])
+def test_program_replays_equal_eager_calls(dev, monkeypatch, engine):
+    """A 200,000-particle M4 scene: every iteration a program replayed
+    (queued ones among them) against the eager body on the same inputs,
+    every output to the bit."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.models import wvt
+    from toycluster_tpu_torch.pipeline import make_ics
+    calls, orig = _record_iterations(monkeypatch)
+    cfg = parse_par_file(str(_PAR), ntotal=200000, sph_kernel="m4",
+                         wvt_max_iter=8)
+    logs = []
+    make_ics(cfg, device="cuda", engine=engine, write=False,
+             log=lambda stage, **kw: logs.append((stage, kw)))
+    done = [kw for s, kw in logs if s == "wvt_done"][0]
+    replays = [c for c in calls if c[4]]
+    assert done["captured"] >= 1 and len(replays) == done["replayed"] > 0
+    monkeypatch.setattr(wvt, "ITER_PROGRAMS", False)
+    for loop, state, args, out, _, _ in replays:
+        eager = orig(loop, state, *args)
+        assert sorted(eager) == sorted(out)
+        for k, v in eager.items():
+            assert torch.equal(v, out[k]), k
+
+
+def test_replays_in_the_window_pass_the_sync_check(dev, monkeypatch):
+    """The 1e6 par, stream engine, under ``wvt.SYNC_CHECK``: iterations
+    queued ahead run as program replays, and the window holds no host
+    sync."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.models import wvt
+    from toycluster_tpu_torch.pipeline import make_ics
+    monkeypatch.setattr(wvt, "SYNC_CHECK", True)
+    calls, _ = _record_iterations(monkeypatch)
+    make_ics(parse_par_file(str(_PAR)), device="cuda", write=False,
+             log=lambda stage, **kw: None)
+    assert any(replay and queued for *_, replay, queued in calls)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("engine", ["stream", "classed"])
+def test_program_launches_equal_eager_launches(dev, monkeypatch, engine):
+    """The same run with the programs on and off launches every kernel
+    as often, and gives the same relaxed gas to the bit; with them on,
+    replays made some of the launches."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.models import wvt
+    from toycluster_tpu_torch.pipeline import make_ics
+    kernels = (sp.stream_wvt, sp.stream_curl, cp.solve_density,
+               cp.wvt_displacement, cp.fused_wvt)
+    cfg = parse_par_file(str(_PAR), ntotal=200000, sph_kernel="m4",
+                         wvt_max_iter=8)
+    runs = {}
+    for on in (True, False):
+        monkeypatch.setattr(wvt, "ITER_PROGRAMS", on)
+        for k in kernels:
+            k.launches = 0
+        wvt.REPLAYED_LAUNCHES.clear()
+        _, parts = make_ics(cfg, device="cuda", engine=engine, write=False,
+                            log=lambda stage, **kw: None)
+        runs[on] = ({k.__name__: k.launches for k in kernels},
+                    sum(wvt.REPLAYED_LAUNCHES.values()), parts.pos)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] > 0 and runs[False][1] == 0
+    assert torch.equal(runs[True][2], runs[False][2])

@@ -147,13 +147,15 @@ def pad_sorted(x, order, n_padded):
     return blk.pad_rows(x[order], n_padded)
 
 
-def build_neighbours(pos_gas, h_cap_gas, boxsize, *, radius_sym_gas=None):
+def build_neighbours(pos_gas, h_cap_gas, boxsize, *, radius_sym_gas=None,
+                     widths=None):
     """Superblock candidate lists for every receiver block (the JAX
     package's ``_build_neighbours_sb``).  With ``radius_sym_gas`` (per
     particle, the WVT metric search length) the range is the union of
     the density gather range and the symmetric displacement pair range,
     so ONE structure serves a whole WVT iteration (the reference walks
-    one tree twice, wvt_relax.c:66-171)."""
+    one tree twice, wvt_relax.c:66-171).  ``widths``: the sticky list
+    width memo of the caller (``trim_width``)."""
     bi = blk.build_blocks(pos_gas, boxsize)
     h_cap = pad_sorted(h_cap_gas, bi.order, bi.n_padded)
     radius = h_cap.reshape(bi.n_blocks, blk.BLOCK).amax(dim=1)
@@ -163,14 +165,32 @@ def build_neighbours(pos_gas, h_cap_gas, boxsize, *, radius_sym_gas=None):
     else:
         radius_sym = torch.zeros_like(radius)
     return NeighbourState(index=bi, cand=_sb_candidates(
-        bi, radius, radius_sym, boxsize), h_cap=h_cap)
+        bi, radius, radius_sym, boxsize, widths), h_cap=h_cap)
 
 
-def _sb_candidates(bi, radius, radius_sym, boxsize):
+def trim_width(need, searched, widths, n_rows):
+    """The list width of the JAX package's ``_trim_and_buckets``: the next
+    power of two of ``need`` (the widest row's count), at least 64; never
+    below the width ``widths`` (a dict by row count) holds from an earlier
+    list of ``n_rows`` rows unless that is more than twice the power of
+    two; never above the ``searched`` width.  Records the width in
+    ``widths``."""
+    w_q = max(64, 1 << (max(need, 1) - 1).bit_length())
+    w_q = max(w_q, min(widths.get(n_rows, 0), 2 * w_q))
+    w_q = min(w_q, searched)
+    widths[n_rows] = w_q
+    return w_q
+
+
+def _sb_candidates(bi, radius, radius_sym, boxsize, widths=None):
     """Superblock candidate search, grown on overflow up to the width
-    cap, then cut to the widest row's count.  (The JAX package keeps
-    process-wide sticky widths so that its compiled program shapes
-    repeat; eager PyTorch compiles nothing, so widths follow the need.)"""
+    cap, then cut: with ``widths`` (the sticky width memo of one WVT
+    relaxation, a dict) to ``trim_width``, so that a list refresh keeps
+    the width of the lists before it and the relaxation's iteration
+    program (models/wvt.py) its shapes; without it to the widest row's
+    count.  Columns past a row's count are -1 padding, which the kernel
+    does not read.  (The JAX package keeps the memo per process; the
+    port's lives as long as the relaxation that holds it.)"""
     ns = bi.sb_lo.shape[0]
     # an even width cap (an odd one at a tiny odd ns would drop every
     # row's farthest superblock); the column past ns is -1 padding
@@ -184,7 +204,9 @@ def _sb_candidates(bi, radius, radius_sym, boxsize):
             break
         m_sb = min(-(-int((m_sb + cand.overflow) * 1.12) // 64) * 64,
                    width_cap)
-    width = min(max(int(cand.count.max()), 1), m_sb)
+    need = int(cand.count.max())
+    width = (min(max(need, 1), m_sb) if widths is None
+             else trim_width(need, m_sb, widths, bi.n_blocks))
     return cand._replace(idx=cand.idx[:, :width].contiguous())
 
 
@@ -201,10 +223,11 @@ def block_boxes(pos_pad, boxsize):
 
 
 def refresh_candidates(state: NeighbourState, pos_sorted_gas,
-                       radius_sym_gas, boxsize) -> NeighbourState:
+                       radius_sym_gas, boxsize, *,
+                       widths=None) -> NeighbourState:
     """Rebuild the superblock lists from CURRENT positions, keeping the
     sort and block membership (once accumulated drift has spent the
-    lists' radius slack)."""
+    lists' radius slack).  ``widths`` as for ``build_neighbours``."""
     bi = state.index
     nb = bi.n_blocks
     n_gas = pos_sorted_gas.shape[0]
@@ -219,7 +242,7 @@ def refresh_candidates(state: NeighbourState, pos_sorted_gas,
         else radius_sym_gas
     radius_sym = sym.reshape(nb, blk.BLOCK).amax(dim=1)
     return state._replace(index=bi2, cand=_sb_candidates(
-        bi2, radius, radius_sym, boxsize))
+        bi2, radius, radius_sym, boxsize, widths))
 
 
 # --------------------------------------------------------------------------
@@ -235,9 +258,10 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
     the widths stop growing become far-tail rows with superblock lists
     (``NeighbourState.tail``).  With ``radius_sym_gas`` the range is the
     union of the gather and the symmetric displacement range.  (The JAX
-    package remembers the widths of earlier builds so that its compiled
-    shapes repeat; eager PyTorch compiles nothing, so every build starts
-    from the first widths.)"""
+    package remembers the widths of earlier builds and quantizes the
+    class sizes so that its compiled shapes repeat; here every build
+    starts from the first widths and keeps exact class sizes, so the WVT
+    loop's iteration program of a build seldom serves the next.)"""
     bi = blk.build_blocks(pos_gas, boxsize)
     nb = bi.n_blocks
     ns = bi.sb_lo.shape[0]

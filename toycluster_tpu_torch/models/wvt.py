@@ -35,6 +35,24 @@ stream runs in order), so the window between queuing the next iteration
 and reading this one's scalars holds no host sync.  Speculation is on
 unless TOYCLUSTER_SPECULATE=0 and only up to SPECULATE_MAX_GAS gas
 particles (the JAX package's switch and limit).
+
+The iteration program, as in the JAX loop.  The JAX package compiles an
+iteration (model density, metric, the pair kernels, scatters, error
+statistics, the saturation count) into ONE program, cached by its shapes
+(``_get_iter_fn``, ``_ITER_FN_CACHE``), with the iteration index, margin,
+step and err_last as dynamic inputs.  Here that program is a CUDA graph
+(``_IterProgram``, ``_Loop.make_program``, ``_Loop.programs``): at the
+first iteration of a list shape the iteration runs eagerly and a graph of
+the same body is captured on static buffers; every later iteration of
+that shape, queued ones included, copies its inputs in, replays the graph
+and clones the outputs out, so a replay runs the same kernels on the same
+inputs as the eager call and gives the same bits.  The stream engine's
+sticky list width (``sph.trim_width``) lets a list refresh find the graph
+it has.  Iterations run eagerly by rule: above PROGRAM_MAX_GAS gas (the
+JAX package's _LARGE_N) and on a count-class state with far-tail rows
+(rebuilt at the next iteration); ``ITER_PROGRAMS = False`` turns the
+programs off.  On the CPU a program runs the body on its static buffers,
+without a graph.
 """
 
 from __future__ import annotations
@@ -43,18 +61,24 @@ import contextlib
 import math
 import os
 import time
+import weakref
+from collections import Counter, OrderedDict
+from functools import partial
 
 import numpy as np
 import torch
 
 from .. import constants as const
 from ..ops import blocks as blk
+from ..ops import class_pair as _cp
+from ..ops import stream_pair as _sp
 from ..ops.class_pair import (fused_wvt, pack_fused_sources, pack_sources,
                               solve_density, wvt_displacement)
 from ..ops.stream_pair import stream_wvt
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
 from ..utils.logging import stage_log
+from ..utils.memory import stage_memory
 from . import sph as sph_mod
 
 NUMITER = 64            # wvt_relax.c:7
@@ -90,6 +114,20 @@ SYNC_CHECK = False
 # the scalars an iteration hands the host, in this order (float64)
 SCALARS = ("err_max", "err_mean", "n_sat", "dmax_rel", "p999_rel",
            "n_contract", "step_new")
+# with True (the default) the iterations run through iteration programs
+# (module docstring); with False every iteration runs eagerly
+ITER_PROGRAMS = True
+# above this many gas particles every iteration runs eagerly (the JAX
+# package's _LARGE_N, above which its iteration leaves the one program)
+PROGRAM_MAX_GAS = 8_000_000
+# live iteration programs of a loop: the current key and the one before
+PROGRAMS_LIVE = 2
+# the kernel launches that program replays made, by kernel (the kernels'
+# own ``launches`` counters hold them too)
+REPLAYED_LAUNCHES: Counter = Counter()
+# the hand-written kernels an iteration launches
+_KERNELS = (_sp.stream_wvt, _cp.solve_density, _cp.wvt_displacement,
+            _cp.fused_wvt)
 
 
 def percentile(x, q):
@@ -175,13 +213,14 @@ def _warm_ratio(rho_model, rho_model_prev):
 
 
 class _Loop:
-    """Constants of one relaxation."""
+    """Constants of one relaxation, its iteration programs' counts and the
+    stream engine's sticky list width memo (``widths``)."""
 
     # (state, its classed selections), made once a state (``selections``)
     _sels = (None, None)
 
     def __init__(self, scene: Scene, ha: HaloArrays, n_gas: int,
-                 engine: str):
+                 engine: str, device, log=stage_log):
         cfg = scene.config
         self.engine = engine
         self.ha = ha
@@ -197,6 +236,21 @@ class _Loop:
         # read once here: the model density of every iteration then
         # needs no host read of the halo masses
         self.gas_halos = sph_mod.gas_halos(ha)
+        self.log = log
+        self.widths = {} if engine == "stream" else None
+        # the eager iterations' dynamic scalars (``iterate``)
+        self.it_d = torch.zeros((), dtype=torch.int32, device=device)
+        self.margin_d = torch.zeros((), dtype=torch.float32, device=device)
+        # programs made, replays, eager iterations; the eager rules logged
+        self.captured = self.replayed = self.eager = 0
+        self.eager_logged = set()
+        # the iteration programs by key, least recently run first (the
+        # counterpart of the JAX package's _ITER_FN_CACHE), the capture
+        # stream and the memory pool of their graphs; True while
+        # ``speculate`` queues an iteration
+        self.programs = OrderedDict()
+        self.stream = self.pool = None
+        self.in_window = False
 
     def model_fields(self, pos_gas):
         return _model_fields_from_rho(
@@ -214,9 +268,11 @@ class _Loop:
         return self._sels[1]
 
     def solve_classed(self, state, pos_pad, h0_s, cap_s, hm_s, hm_src,
-                      valid):
-        """Density solve and displacement per count class: (rho, hsml,
-        vf, wk, done) as (nb, 128) and delta (nb, 128, 3), box units."""
+                      valid, sels=None):
+        """Density solve and displacement per count class (``sels``: the
+        state's classed selections, ``selections(state)`` by default):
+        (rho, hsml, vf, wk, done) as (nb, 128) and delta (nb, 128, 3),
+        box units."""
         nb = state.index.n_blocks
         kw = dict(kernel=self.kernel, desnngb=self.desnngb,
                   n_sweeps=sph_mod.CLASSED_SWEEPS)
@@ -272,18 +328,21 @@ class _Loop:
                                        if m <= FUSED_WIDTH else
                                        two_pass(ids, rows, False)),
             lambda ids, sb_rows, sb_cnt: two_pass(ids, sb_rows, True),
-            sels=self.selections(state))
+            sels=self.selections(state) if sels is None else sels)
 
-    def iterate(self, state, pos_gas, h_prev, rhom_prev, sat_mask,
-                margin_w, fac_gas, step, err_last, it):
+    def body(self, state, sels, pos_gas, h_prev, rhom_prev, sat_mask,
+             margin_d, fac_gas, step, err_last, it_d):
         """One WVT iteration on the current structure: model density,
         metric, the density solve + displacement, error statistics, the
         step shrink, the move and the accept-path cap ratchet, all on the
-        device (``step`` and ``err_last`` are fp32 0-d tensors).  Returns
-        a dict of device tensors: the lane results, err_mean and step_new
-        (0-d, for the next call), fac_new, and ``scalars``, the float64
-        (7,) tensor of SCALARS that the loop reads.  Queues work and
-        reads nothing back, so it can run while the host waits."""
+        device.  ``step``, ``err_last``, the margin ``margin_d`` (fp32)
+        and the iteration index ``it_d`` (int32) are 0-d tensors, so the
+        same body serves every iteration (the JAX iteration function's
+        dynamic inputs); ``sels``: the state's classed selections.
+        Returns a dict of device tensors: the lane results, err_mean and
+        step_new (0-d, for the next call), fac_new, and ``scalars``, the
+        float64 (7,) tensor of SCALARS that the loop reads.  Queues work
+        and reads nothing back."""
         n_gas = self.n_gas
         nb = state.index.n_blocks
         n_padded = nb * blk.BLOCK
@@ -304,10 +363,10 @@ class _Loop:
         if self.engine == "classed":
             cap_eff = h_cap_pad
             rho, hsml, vf, wk, done, delta = self.solve_classed(
-                state, pad1(pos_gas), h0_s, cap_eff, hm_s, hm_src, valid)
+                state, pad1(pos_gas), h0_s, cap_eff, hm_s, hm_src, valid,
+                sels=sels)
         else:
-            margin = torch.where(pad1(h_prev > 0),
-                                 torch.full_like(h0_s, margin_w),
+            margin = torch.where(pad1(h_prev > 0), margin_d,
                                  torch.full_like(h0_s, BITS_MARGIN_COLD))
             cap_eff = torch.where(pad1(sat_mask), h_cap_pad,
                                   torch.minimum(h_cap_pad, h0_s * margin))
@@ -338,15 +397,17 @@ class _Loop:
         n_contract = ((torch.abs(wk - self.desnngb) < const.NNGBDEV)
                       & valid).sum()
         err_mean = err.mean()
-        # step shrink + move (wvt_relax.c:94-101 ordering), in fp32
+        # step shrink (from it = 2 on) + move (wvt_relax.c:94-101
+        # ordering), in fp32
         err_diff = (err_last - err_mean) / err_mean
-        step_new = (torch.where(err_diff < 0.01, step * 0.8, step)
-                    if it > 1 else step)
+        step_new = torch.where((it_d > 1) & (err_diff < 0.01), step * 0.8,
+                               step)
         pos_new = pos_gas + delta[:n_gas] * (step_new * self.boxsize)
         pos_new = pos_new - torch.floor(pos_new / self.boxsize) * self.boxsize
         # accept-path cap ratchet: applied where the host will accept
         # this iteration's capped h, so a queued it+1 starts from it
-        band = _accept_band(n_gas, 0) if it < 3 else _accept_band(n_gas)
+        band = torch.where(it_d < 3, _accept_band(n_gas, 0),
+                           _accept_band(n_gas))
         accept = (n_sat_d > 0) & (n_sat_d <= band)
         fac_new = torch.where(
             accept & (hsml[:n_gas] >= h_cap_pad[:n_gas] * 0.999),
@@ -359,14 +420,187 @@ class _Loop:
                     step_new=step_new, fac_new=fac_new,
                     saturated=saturated[:n_gas], scalars=scalars)
 
+    def eager_rule(self, state):
+        """Why an iteration on ``state`` runs eagerly, or None: "off"
+        (ITER_PROGRAMS), "large" (more than PROGRAM_MAX_GAS gas), "tail"
+        (a count-class state with far-tail rows, rebuilt at the next
+        iteration)."""
+        if not ITER_PROGRAMS:
+            return "off"
+        if self.n_gas > PROGRAM_MAX_GAS:
+            return "large"
+        if state.tail is not None:
+            return "tail"
+        return None
+
+    def program_key(self, state, sels):
+        """The shapes and constants an iteration program is made for:
+        engine, gas, blocks, list width, the classed class shape (width,
+        rows) and tail shape, kernel, desnngb, cool core and beta."""
+        return (self.engine, self.n_gas, state.index.n_blocks,
+                state.max_cand,
+                None if sels is None else tuple(
+                    (m, int(ids.shape[0])) for m, ids in sels),
+                None if state.tail is None else tuple(state.tail[1].shape),
+                self.kernel, self.desnngb, self.cool_core, self.beta)
+
+    def iterate(self, state, pos_gas, h_prev, rhom_prev, sat_mask,
+                margin_w, fac_gas, step, err_last, it):
+        """One WVT iteration (``body``) at the Python margin ``margin_w``
+        and index ``it``: through the iteration program of the state's
+        shape, or eagerly by ``eager_rule``.  Where the shape has no
+        program yet the iteration runs eagerly and the program is made
+        (on a CUDA device captured) after it; inside the speculation
+        window (``speculate``) that raises instead.  Returns ``body``'s
+        dict; queues work and reads nothing back (but the classed
+        selections at a state's first iteration)."""
+        sels = self.selections(state) if self.engine == "classed" else None
+        inputs = (pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step,
+                  err_last)
+        rule = self.eager_rule(state)
+        key = None if rule else self.program_key(state, sels)
+        prog = self.programs.get(key)
+        if prog is not None:
+            self.programs.move_to_end(key)
+            self.replayed += 1
+            return prog.run(self, state, sels, inputs, margin_w, it)
+        if rule is None and self.in_window:
+            raise RuntimeError(
+                f"no iteration program for {key} at it = {it}: a capture "
+                f"inside the speculation window")
+        if rule is not None:
+            self.eager += 1
+            if rule not in self.eager_logged:
+                self.eager_logged.add(rule)
+                self.log("wvt_eager", it=it, rule=rule)
+        self.it_d.fill_(it)
+        self.margin_d.fill_(margin_w)
+        out = self.body(state, sels, pos_gas, h_prev, rhom_prev, sat_mask,
+                        self.margin_d, fac_gas, step, err_last, self.it_d)
+        if rule is None:
+            self.make_program(key, state, sels, inputs, it)
+        return out
+
+    def make_program(self, key, state, sels, inputs, it):
+        """Make the program for ``key`` (captured on a CUDA device; the
+        state's first iteration ran eagerly just before, which also
+        loaded the kernels), keep it with the one before it, free older
+        ones, and log ``wvt_graph``.  A new key comes only from a build
+        or a list refresh, whose synchronisation finished every replay
+        of the programs freed here."""
+        t0 = time.perf_counter()
+        prog = _IterProgram(state, sels, inputs)
+        while len(self.programs) >= PROGRAMS_LIVE:
+            self.programs.popitem(last=False)
+        graph = inputs[0].is_cuda
+        if graph:
+            prog.capture(self)
+        self.programs[key] = prog
+        self.captured += 1
+        self.log("wvt_graph", it=it, key=key, graph=graph,
+                 seconds=time.perf_counter() - t0, kernels=prog.launches)
+
     def speculate(self, state, out, margin_w, sat_false, it):
         """Iteration ``it`` queued from the previous iteration's device
         outputs ``out``: the JAX loop's speculative call (its margin
         ``margin_w`` without the cold floor, no saturation mask)."""
-        return self.iterate(state, out["pos_new"], out["hsml"],
-                            out["rho_model"], sat_false, margin_w,
-                            out["fac_new"], out["step_new"], out["err_mean"],
-                            it)
+        self.in_window = True
+        try:
+            return self.iterate(state, out["pos_new"], out["hsml"],
+                                out["rho_model"], sat_false, margin_w,
+                                out["fac_new"], out["step_new"],
+                                out["err_mean"], it)
+        finally:
+            self.in_window = False
+
+
+class _IterProgram:
+    """The iteration ``body`` of one key on static buffers: the loop
+    arrays and dynamic scalars (copied or filled in before each run) and
+    the state's lists, counts, cap and class ids (copied in when the
+    state changes).  On a CUDA device a graph captured on them is
+    replayed; on the CPU the body runs on them.  Outputs are cloned out,
+    so a queued run cannot overwrite what a retry still reads."""
+
+    def __init__(self, state, sels, inputs):
+        self.inputs = [torch.empty_like(x) for x in inputs]
+        dev = inputs[0].device
+        self.margin = torch.zeros((), dtype=torch.float32, device=dev)
+        self.it = torch.zeros((), dtype=torch.int32, device=dev)
+        cand = state.cand
+        self.lists = [torch.empty_like(cand.idx), torch.empty_like(cand.count),
+                      torch.empty_like(state.h_cap)]
+        # the body reads the block count of the index, nothing else
+        none = cand.idx.new_empty((state.index.n_blocks, 0))
+        self.state = state._replace(
+            index=blk.BlockIndex(*(none,) * 7),
+            cand=cand._replace(idx=self.lists[0], count=self.lists[1],
+                               sb_count=None), h_cap=self.lists[2])
+        self.sels = (None if sels is None else
+                     [(m, torch.empty_like(ids)) for m, ids in sels])
+        self.source = None   # weak reference to the lists the buffers hold
+        self.graph = self.outputs = None
+        self.launches = {}   # kernel launches of one run, by kernel
+
+    def load(self, state, sels, inputs, margin_w, it):
+        if self.source is None or self.source() is not state.cand.idx:
+            for buf, x in zip(self.lists, (state.cand.idx, state.cand.count,
+                                           state.h_cap)):
+                buf.copy_(x)
+            for (_, buf), (_, ids) in zip(self.sels or (), sels or ()):
+                buf.copy_(ids)
+            self.source = weakref.ref(state.cand.idx)
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+        self.margin.fill_(margin_w)
+        self.it.fill_(it)
+
+    def body(self, loop):
+        pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step, err_last = \
+            self.inputs
+        return loop.body(self.state, self.sels, pos_gas, h_prev, rhom_prev,
+                         sat_mask, self.margin, fac_gas, step, err_last,
+                         self.it)
+
+    def capture(self, loop):
+        """Capture ``loop.body`` into a CUDA graph on the loop's capture
+        stream and memory pool.  A capture launches nothing, so the
+        kernels' counters are set back and the launches it recorded are
+        added at each replay instead.  Raises where capture fails."""
+        if loop.stream is None:
+            loop.stream = torch.cuda.Stream()
+            loop.pool = torch.cuda.graph_pool_handle()
+        before = [k.launches for k in _KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        loop.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(loop.stream):
+            graph.capture_begin(pool=loop.pool)
+            try:
+                out = self.body(loop)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(loop.stream)
+        for k, n in zip(_KERNELS, before):
+            if k.launches != n:
+                self.launches[k.__name__] = k.launches - n
+            k.launches = n
+        self.graph, self.outputs = graph, out
+
+    def run(self, loop, state, sels, inputs, margin_w, it):
+        self.load(state, sels, inputs, margin_w, it)
+        if self.graph is None:
+            out = self.body(loop)
+        else:
+            self.graph.replay()
+            for k in _KERNELS:
+                n = self.launches.get(k.__name__, 0)
+                k.launches += n
+                REPLAYED_LAUNCHES[k.__name__] += n
+            out = self.outputs
+        return {k: v.clone() for k, v in out.items()}
 
 
 class _HostRead:
@@ -461,7 +695,12 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     Dispatch as in the JAX loop (module docstring): ``wvt_done`` counts
     the iterations queued ahead (``speculated``), the ones adopted and
     the ones dropped, and each drop is logged (``wvt_drop``, with its
-    reason)."""
+    reason).  It also counts the iteration programs made (``captured``;
+    each logged as ``wvt_graph`` with its key, seconds and the kernel
+    launches it holds), the iterations they ran (``replayed``) and the
+    iterations run eagerly by rule (``eager``; each rule logged once as
+    ``wvt_eager``).  ``wvt_build`` and ``wvt_refresh`` carry the device
+    memory (``mem_gib``, ``peak_gib``) on a CUDA device."""
     global last_contract_frac
     sph_mod.check_engine(engine)
     cfg = scene.config
@@ -469,9 +708,9 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     if n_gas == 0:
         return parts, False
     dev = parts.device
-    L = _Loop(scene, ha, n_gas, engine)
-    build = (sph_mod.build_neighbours if engine == "stream"
-             else sph_mod.build_neighbours_blocks)
+    L = _Loop(scene, ha, n_gas, engine, dev, log)
+    build = (partial(sph_mod.build_neighbours, widths=L.widths)
+             if engine == "stream" else sph_mod.build_neighbours_blocks)
     desnngb, mpart, boxsize = L.desnngb, L.mpart, L.boxsize
     t_start = time.perf_counter()
 
@@ -561,11 +800,12 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                 hm_w = (_metric_hsml(rho_model_l, mpart, desnngb)
                         * boxsize * SYM_MARGIN)
                 state = sph_mod.refresh_candidates(state, pos_gas, hm_w,
-                                                   boxsize)
+                                                   boxsize, widths=L.widths)
                 drift_acc = 0.0
                 _sync(dev)
                 log("wvt_refresh", it=it, max_cand=state.max_cand,
-                    seconds=time.perf_counter() - t_refresh)
+                    seconds=time.perf_counter() - t_refresh,
+                    **stage_memory(dev))
             else:
                 state = None
 
@@ -603,7 +843,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                     seconds=time.perf_counter() - t_build,
                     max_cand=state.max_cand,
                     tail_rows=(0 if state.tail is None
-                               else int(state.tail[0].shape[0])))
+                               else int(state.tail[0].shape[0])),
+                    **stage_memory(dev))
 
             if pending is not None and pending[0] == it:
                 out = pending[1]
@@ -712,9 +953,11 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                               rho_model=rho_model_l)
     _sync(dev)
     dt = time.perf_counter() - t_start
+    L.programs.clear()
     log("wvt_done", iterations=n_iter, seconds=dt,
         particle_updates_per_s=n_gas * n_iter / dt, speculated=n_spec,
-        adopted=n_adopted, dropped=n_dropped)
+        adopted=n_adopted, dropped=n_dropped, captured=L.captured,
+        replayed=L.replayed, eager=L.eager)
     return parts, fresh
 
 

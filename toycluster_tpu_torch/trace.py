@@ -15,8 +15,10 @@ the traced run:
   ``make_ics`` marks with ``record_function(WVT_SPAN)``);
 * the device time and call count of each device op name, largest first;
 * the wall time of each WVT iteration (from the stage log), the
-  saturated lanes of each retry and the iterations the loop queued
-  ahead, adopted and dropped;
+  saturated lanes of each retry, the iterations the loop queued ahead,
+  adopted and dropped, and its iteration programs made and replayed
+  (the kernels of a replayed CUDA graph are device ops of their own in
+  the trace, so they count in the busy time);
 * the peak device memory and the launch counts of the pair kernels.
 
 Fails when the profiler recorded no device op.
@@ -158,7 +160,9 @@ def main(argv=None):
                   f"lanes, rebuild={rec['rebuild']}")
         if rec["stage"] == "wvt_done":
             print(f"wvt iterations queued ahead {rec['speculated']}, "
-                  f"adopted {rec['adopted']}, dropped {rec['dropped']}")
+                  f"adopted {rec['adopted']}, dropped {rec['dropped']}; "
+                  f"iteration programs made {rec['captured']}, replayed "
+                  f"{rec['replayed']}, eager iterations {rec['eager']}")
         prev = rec["t"]
     print(f"wvt iteration wall s: {iters}")
     print(f"peak device memory {r['peak'] / 2**30:.4f} GiB; launches "
