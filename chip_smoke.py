@@ -24,7 +24,15 @@ parent).
    bit (the kernel against itself with prune=False, hoist=False), prints
    the listed, kept and swept members and the sweeps per row (median,
    p99, max, from the kernel's stats) and times the kernel as it runs,
-   without the hoisted wrap, and without pruning and hoisting.
+   without the hoisted wrap, and without pruning and hoisting.  Then
+   padded rows, as the count-class engine makes them: the odd receiver
+   rows of the cusp as one count class (solve_density, wvt_displacement,
+   fused_wvt on block lists) and as far-tail rows (solve_density on
+   superblock lists), their ids padded with -1 to the quantized size
+   (``sph.quantize_size``; rows all -1, counts 0), through
+   ``sph.run_classed``: the real rows against the plain versions on the
+   exact rows with the same tolerances, the padded rows' outputs finite
+   and dropped (row 0, whose receivers they gather, stays zero).
 4. Drives the CLI main path, ``toycluster_tpu_torch.cli.main``, on the
    repository's cluster.par (Ntotal 1e6, WC6, B field on) with
    device=cuda twice, with every launch counter set to 0 just before
@@ -65,7 +73,10 @@ parent).
    5, and the checkpoint must hold the last iteration of the form 16 k -
    1 the run moved past; prints each kernel call's device time (CUDA
    events around the wrapper), the checkpoint saves' times and the peak
-   device memory per gas particle.  B: at Ntotal 1e7 on engine=classed,
+   device memory per gas particle, the iteration programs made and
+   replayed and the WVT loop's seconds; at 5e7 gas, under
+   ``wvt.PROGRAM_MAX_GAS``, the loop must make programs and run no
+   iteration eagerly.  B: at Ntotal 1e7 on engine=classed,
    a run stopped at wvt_max_iter 16 must leave it = 15 in a fresh
    checkpoint; a second run (default wvt_max_iter, the audit,
    ``profile_dir``) must resume at it = 16 with the saved step, pass step
@@ -163,19 +174,24 @@ parent).
 11. The WVT loop's iteration programs (``wvt.ITER_PROGRAMS``: each
    iteration of a list shape replayed as one captured CUDA graph):
    presets 1 (both engines), the 1e6 par (both engines) and config 4 at
-   Ntotal 1e7 (stream engine), each with the programs on and off at the
+   Ntotal 1e7 (both engines), each with the programs on and off at the
    default speculation, through ``make_ics(device="cuda")``, counted,
    then again under the profiler.  Every pair must give the same wvt
    records and relaxed gas (positions, rho, hsml) to the bit and the same
-   launches of every kernel (a replay adds the launches its program
-   captured); every stream run with programs replays one, none is made
-   without them, and in every traced run the device ops of each kernel
-   number its launches (the kernels inside a replayed graph count in
-   the WVT span's busy time).  Prints per run the programs made and
+   launches of every kernel record, the far-tail records included (a
+   replay adds the launches its program captured); with the programs on
+   every run replays one and no iteration runs eagerly (the first
+   iteration of a key makes the program), the classed preset 1 and 1e6
+   par make at most 3 programs and replay at least 8; none is made
+   without them; in every traced run the device ops of each kernel
+   number its launches (the kernels inside a replayed graph count in the
+   WVT span's busy time).  Prints per run the programs made and
    replayed, the eager iterations, the capture seconds, the loop's
-   seconds and updates/s, the traced WVT span's idle share and the peak
-   device memory.  Step 6's 1e8 run (5e7 gas, above the JAX package's
-   _LARGE_N) must make no program, and step 5's instrumented second runs
+   seconds and updates/s, the traced WVT span's idle share, the peak
+   device memory allocated and reserved and the memory the programs
+   added (``wvt_graph``'s ``added_gib``), and per pair the bytes a gas
+   particle that the programs added to the peaks (the measurement
+   behind ``wvt.PROGRAM_MAX_GAS``).  Step 5's instrumented second runs
    run with the programs off (no capture may synchronise).
 
 Prints the wall time of each phase, the kernel record (with each record's
@@ -806,6 +822,99 @@ def check_fused(torch, sp, cp, args, kw, valid, parent=None):
     return res
 
 
+def check_padded(torch, cp, c, kernel, sb_mode):
+    """Padded rows as the count-class engine makes them: the odd receiver
+    rows of the cusp ``c`` (``cusp.class_inputs``) as one count class
+    (block lists: solve_density, wvt_displacement, fused_wvt) or as
+    far-tail rows (superblock lists: solve_density), their ids padded
+    with -1 to ``sph.quantize_size`` (rows all -1, counts 0) and run
+    through ``sph.run_classed``.  The real rows must agree with the plain
+    versions on the exact rows (step 3's tolerances), the padded rows'
+    outputs must be finite, and they must be dropped: row 0, whose
+    receivers they gather and which is no real id, stays zero.  Returns
+    the padded and the real row counts and the kernels held."""
+    from toycluster_tpu_torch.models import sph
+    from toycluster_tpu_torch.ops import blocks as blk
+    from toycluster_tpu_torch.ops.cusp import BOX
+    cand, cnt, nb = c["cand"], c["cnt"], c["cand"].shape[0]
+    real = torch.arange(1, nb, 2, dtype=torch.int32, device=cand.device)
+    ids = sph._pad_ids(real, sph.quantize_size(real.numel(), nb,
+                                               -1 if sb_mode else 0))
+    pad = ids < 0
+    if not bool(pad.any()):
+        fail(f"padded rows: {real.numel()} rows of {nb} need no padding")
+    idc = torch.clamp(ids, min=0).long()
+    rl = real.long()
+    desnngb = c["desnngb"]
+    pos_t, valid_t, h0, cap, hm = (c[k] for k in ("pos_t", "valid_t", "h0",
+                                                  "cap", "hm"))
+    dev_kw = dict(kernel=kernel, desnngb=desnngb)
+    calls = [
+        ("solve_density", lambda i, rows, n: cp.solve_density(
+            pos_t, valid_t, rows, pos_t[i], h0[i], cap[i], 1.0, BOX,
+            sb_mode=sb_mode, **dev_kw)[:5],
+         lambda: cp._solve_density_reference(
+            pos_t, valid_t, cand[rl], pos_t[rl], h0[rl], cap[rl], 1.0,
+            BOX, n_sweeps=cp.SOLVE_SWEEPS, sb_mode=sb_mode,
+            **dev_kw))]
+    if not sb_mode:
+        calls += [
+            ("wvt_displacement", lambda i, rows, n: (cp.wvt_displacement(
+                pos_t, valid_t, c["h_b3"], rows, pos_t[i], hm[i], 1.0,
+                BOX, kernel=kernel),),
+             lambda: cp._wvt_displacement_reference(
+                pos_t, valid_t, c["h_b3"], cand[rl], pos_t[rl], hm[rl], 1.0,
+                BOX, kernel=kernel, sb_mode=False)),
+            ("fused_wvt", lambda i, rows, n: cp.fused_wvt(
+                pos_t, c["hm_blocks"], rows, n, pos_t[i], h0[i], cap[i],
+                hm[i], 1.0, BOX, **dev_kw),
+             lambda: cp._fused_wvt_reference(
+                pos_t, c["hm_blocks"], cand[rl], cnt[rl], pos_t[rl], h0[rl],
+                cap[rl], hm[rl], 1.0, BOX, n_sweeps=cp.FUSED_SWEEPS,
+                sb_mode=False, do_disp=True, gdist=None, dkeep=None,
+                **dev_kw))]
+    tail_rows = torch.where(pad[:, None], -1, cand[idc])
+    tail_cnt = torch.where(pad, 0, cnt[idc])
+    state = sph.NeighbourState(
+        index=blk.BlockIndex(*(torch.zeros((nb, 0), device=cand.device),)
+                             * 7),
+        cand=blk.CandidateList(idx=cand, count=cnt, overflow=0),
+        h_cap=cap.reshape(-1),
+        tail=(ids, tail_rows, tail_cnt) if sb_mode else None)
+    for name, run, plain in calls:
+        raw = []
+
+        def fn(ids_, rows, n, _run=run):
+            raw.append(_run(torch.clamp(ids_, min=0).long(), rows, n))
+            return raw[-1]
+        if sb_mode:
+            got = sph.run_classed(state, None, lambda i, r, n: fn(i, r, n),
+                                  sels=[])
+        else:
+            got = sph.run_classed(state, lambda i, r, n, m: fn(i, r, n),
+                                  sels=[(cand.shape[1], ids)])
+        torch.cuda.synchronize()
+        for x in raw[0]:
+            if x.is_floating_point() and not bool(
+                    torch.isfinite(x[pad]).all()):
+                fail(f"{name}: a padded row's output is not finite")
+        others = torch.ones(nb, dtype=torch.bool, device=cand.device)
+        others[rl] = False
+        if not bool(others[0]) or any(bool((x[others] != 0).any())
+                                      for x in got):
+            fail(f"{name}: a padded row's output was not dropped")
+        ref = plain()
+        v = c["valid"][rl]
+        if name == "wvt_displacement":
+            compare_disp(torch, got[0][rl], ref, v, f"padded {name}")
+        else:
+            do_disp = name == "fused_wvt"
+            compare_wvt(torch, tuple(x[rl] for x in got[:5]) + (
+                got[5][rl] if do_disp else None,), unpack(ref, do_disp), v,
+                desnngb, do_disp, f"padded {name}")
+    return ids.numel(), real.numel(), [name for name, _, _ in calls]
+
+
 def check_kernels_on_cusp(torch, sp, cp, device):
     from toycluster_tpu_torch.ops import cusp
     n = 100_000
@@ -850,6 +959,12 @@ def check_kernels_on_cusp(torch, sp, cp, device):
                 f"max|dwk|={r['err']:.3g} kernel_ms={r['ms']:.3f} "
                 f"plain_ms={r['plain_ms']:.3f} "
                 f"bound_ms={r['bound_ms']:.3f}")
+            n_pad, n_real, names = check_padded(torch, cp, c, kernel,
+                                                sb_mode)
+            say(f"cusp 1e5 padded {'far-tail rows' if sb_mode else 'class'}"
+                f" kernel={kernel}: {n_real} rows padded to {n_pad}; "
+                f"{', '.join(names)} agree with the plain versions, the "
+                f"padded rows finite and dropped")
 
 
 # --------------------------------------------------------------- main path
@@ -903,8 +1018,9 @@ def counted(torch, sp, cp, drive, record=True):
     solve_density and wvt_displacement apart.  A call made while a WVT
     iteration program is captured launches nothing and is neither
     counted nor recorded here: the program adds its launches at each
-    replay (``wvt.REPLAYED_LAUNCHES``, all of them block-list calls), so
-    the inputs recorded are those of an eager call.  Returns (drive's
+    replay (``wvt.REPLAYED_LAUNCHES``, by record name: the far-tail
+    calls under their ``_sb`` records), so the inputs recorded are those
+    of an eager call.  Returns (drive's
     result, launches by record name, launches by kernel, recorded inputs
     (or the device ms of each call by record name), wall s, start
     time)."""
@@ -1003,7 +1119,8 @@ def report_run(tag, t0, fell=True):
         f"{[round(b - a, 3) for a, b in zip(stamps, stamps[1:])]}")
     say(f"[{tag}] wvt builds {len(builds)}, far-tail rows per build "
         f"{[r.get('tail_rows', 0) for r in builds]}, list widths "
-        f"{[r['max_cand'] for r in builds]}, seconds "
+        f"{[r['max_cand'] for r in builds]}, (class, far-tail) shapes "
+        f"{[(r.get('classes'), r.get('tail')) for r in builds]}, seconds "
         f"{[round(r['seconds'], 4) for r in builds]}; list refreshes (it, "
         f"width, s) {[(r['it'], r['max_cand'], round(r['seconds'], 4))
                       for r in refreshes]}; retries "
@@ -1319,13 +1436,22 @@ def run_large(torch, sp, cp, tmp):
         say(f"[{tag}] {name}: device ms a call (CUDA events around the "
             f"wrapper) {[round(m, 3) for m in ms]}")
     recs = check_config4(torch, tag, cfg, "stream", scene, parts, totals, t0)
-    # above the JAX package's _LARGE_N every iteration runs eagerly
+    # under the program-size limit the loop runs on iteration programs
+    from toycluster_tpu_torch.models import wvt
     done = [r for r in recs if r["stage"] == "wvt_done"][0]
     eager = [r["rule"] for r in recs if r["stage"] == "wvt_eager"]
-    if done["captured"] or done["replayed"] or eager != ["large"]:
-        fail(f"{tag}: iteration programs made {done['captured']}, replayed "
-             f"{done['replayed']}, eager rules {eager}; expected none, "
-             f"none, ['large']")
+    graphs = [r for r in recs if r["stage"] == "wvt_graph"]
+    say(f"[{tag}] WVT loop {done['seconds']:.6f} s; iteration programs "
+        f"made {done['captured']} (capture s "
+        f"{[round(r['seconds'], 4) for r in graphs]}, added GiB "
+        f"{[round(r.get('added_gib', 0.0), 4) for r in graphs]}), replayed "
+        f"{done['replayed']}, eager {done['eager']} {eager}; "
+        f"PROGRAM_MAX_GAS {wvt.PROGRAM_MAX_GAS}")
+    if scene.npart_gas <= wvt.PROGRAM_MAX_GAS and (
+            eager or not done["captured"] or not done["replayed"]):
+        fail(f"{tag}: {scene.npart_gas} gas under PROGRAM_MAX_GAS, yet "
+             f"programs made {done['captured']}, replayed "
+             f"{done['replayed']}, eager rules {eager}")
     saves = [r for r in recs if r["stage"] == "wvt_checkpoint"]
     say(f"[{tag}] checkpoint saves (it, s): "
         f"{[(r['it'], round(r['seconds'], 4)) for r in saves]}")
@@ -2278,7 +2404,11 @@ PROGRAM_RUNS = (("preset 1 stream", "stream", "preset1"),
                 ("preset 1 classed", "classed", "preset1"),
                 ("1e6 par stream", "stream", "par"),
                 ("1e6 par classed", "classed", "par"),
-                ("config-4 1e7 stream", "stream", 10_000_000))
+                ("config-4 1e7 stream", "stream", 10_000_000),
+                ("config-4 1e7 classed", "classed", 10_000_000))
+# the runs whose count-class shapes must repeat: at most this many
+# programs, replayed on at least this many iterations
+PROGRAM_SHAPES = (("preset 1 classed", "1e6 par classed"), 3, 8)
 # each kernel's device op in a trace holds this in its name
 DEVICE_OPS = {lib: f"{lib}_kernel" for lib in LIBS}
 
@@ -2291,8 +2421,9 @@ def program_run(torch, sp, cp, tmp, engine, what, on):
     launches (the kernels of a replayed graph are traced one by one).
     Returns the row: the WVT record's counts and times, the capture
     seconds, the traced WVT span's wall, busy and idle share, the peak
-    device memory, the launches by kernel, the stage log's wvt records
-    and the relaxed gas."""
+    device memory allocated and reserved, the memory the programs added,
+    the gas particles, the launches by record (far-tail records apart),
+    the stage log's wvt records and the relaxed gas."""
     from toycluster_tpu_torch import trace
     from toycluster_tpu_torch.models import wvt
     from toycluster_tpu_torch.pipeline import make_ics
@@ -2306,12 +2437,14 @@ def program_run(torch, sp, cp, tmp, engine, what, on):
     wvt.ITER_PROGRAMS = on
     try:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        (_, parts), _, totals, _, _, _ = counted(
+        (_, parts), launches, _, _, _, _ = counted(
             torch, sp, cp, lambda: make_ics(cfg, device="cuda",
                                             engine=engine, write=False),
             record=False)
         peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
         recs = list(tlog.METRICS)
         tr = trace.trace_make_ics(cfg, engine)
     finally:
@@ -2323,17 +2456,20 @@ def program_run(torch, sp, cp, tmp, engine, what, on):
             fail(f"programs={on}: the trace holds {ops} device ops of {lib}"
                  f", its counter {n} launches")
     done = [r for r in recs if r["stage"] == "wvt_done"][0]
+    graphs = [r for r in recs if r["stage"] == "wvt_graph"]
     n_gas = parts.n_gas
     return dict(
         captured=done["captured"], replayed=done["replayed"],
         eager=done["eager"], iterations=done["iterations"],
-        capture_s=sum(r["seconds"] for r in recs
-                      if r["stage"] == "wvt_graph"),
-        keys=[r["key"] for r in recs if r["stage"] == "wvt_graph"],
+        capture_s=sum(r["seconds"] for r in graphs),
+        added_gib=sum(r.get("added_gib", 0.0) for r in graphs),
+        keys=[r["key"] for r in graphs],
         loop_s=done["seconds"],
         updates_per_s=done["particle_updates_per_s"],
         wvt_wall=tr["wvt_wall"], wvt_busy=tr["wvt_busy"],
-        wvt_idle=tr["wvt_idle"], peak_gib=peak / 2**30, launches=totals,
+        wvt_idle=tr["wvt_idle"], peak_gib=peak / 2**30,
+        peak_reserved_gib=peak_reserved / 2**30, n_gas=n_gas,
+        launches=launches,
         wvt=[{k: v for k, v in r.items() if k != "t"} for r in recs
              if r["stage"] == "wvt"],
         gas=(parts.pos[:n_gas], parts.rho, parts.hsml))
@@ -2343,8 +2479,10 @@ def run_programs(torch, sp, cp, tmp):
     """Step 11: PROGRAM_RUNS with the WVT iteration programs on and off
     (``program_run``).  Each pair must give the same wvt records and the
     same relaxed gas (positions, rho, hsml; ``torch.equal``) and the same
-    launches of every kernel; with programs off none is made or replayed;
-    every stream run with them on replays one."""
+    launches of every kernel record; with programs off none is made or
+    replayed; with them on every run replays one and runs no iteration
+    eagerly, and the PROGRAM_SHAPES runs make few programs and replay
+    them often."""
     rows = {}
     for tag, engine, what in PROGRAM_RUNS:
         for on in (True, False):
@@ -2369,8 +2507,14 @@ def run_programs(torch, sp, cp, tmp):
         if off["captured"] or off["replayed"]:
             fail(f"{tag}: programs off made {off['captured']}, replayed "
                  f"{off['replayed']}")
-        if engine == "stream" and not on["replayed"] > 0:
-            fail(f"{tag}: no iteration program was replayed")
+        if not on["replayed"] > 0 or on["eager"]:
+            fail(f"{tag}: programs on replayed {on['replayed']}, ran "
+                 f"{on['eager']} iterations eagerly")
+        names, most, least = PROGRAM_SHAPES
+        if tag in names and not (on["captured"] <= most
+                                 and on["replayed"] >= least):
+            fail(f"{tag}: {on['captured']} programs made (at most {most}), "
+                 f"{on['replayed']} replayed (at least {least})")
         say(f"[{tag}] programs on and off: the same {len(on['wvt'])} wvt "
             f"records, positions, rho and hsml to the bit; launches "
             f"{on['launches']}")
@@ -2378,14 +2522,25 @@ def run_programs(torch, sp, cp, tmp):
     say("step 11 (WVT iteration programs; idle shares from the traced "
         "second run): run, programs, iterations, made, replayed, eager, "
         "capture s, loop s, updates/s, traced WVT span s, its device busy "
-        "s, idle share of the WVT span, peak GiB")
+        "s, idle share of the WVT span, peak GiB allocated, reserved, "
+        "added by the programs")
     for (tag, on), r in rows.items():
         say(f"  {tag} | {'on' if on else 'off'} | {r['iterations']} | "
             f"{r['captured']} | {r['replayed']} | {r['eager']} | "
             f"{r['capture_s']:.6f} | {r['loop_s']:.6f} | "
             f"{r['updates_per_s']:.6g} | {r['wvt_wall']:.6f} | "
             f"{r['wvt_busy']:.6f} | {r['wvt_idle']:.6f} | "
-            f"{r['peak_gib']:.4f}")
+            f"{r['peak_gib']:.4f} | {r['peak_reserved_gib']:.4f} | "
+            f"{r['added_gib']:.4f}")
+    say("step 11, what the programs add to the peak device memory, bytes a "
+        "gas particle (on - off): run, gas, allocated, reserved, added")
+    for tag, _, _ in PROGRAM_RUNS:
+        on, off = rows[tag, True], rows[tag, False]
+        per = 2**30 / on["n_gas"]
+        say(f"  {tag} | {on['n_gas']} | "
+            f"{(on['peak_gib'] - off['peak_gib']) * per:.1f} | "
+            f"{(on['peak_reserved_gib'] - off['peak_reserved_gib']) * per:.1f}"
+            f" | {on['added_gib'] * per:.1f}")
 
 
 def main():

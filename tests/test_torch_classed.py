@@ -141,23 +141,29 @@ def test_classes_and_tail_match_jax(cloud, fresh_jax, monkeypatch, ms_cap):
     assert (ts.tail is None) == (js.tail is None) == (ms_cap == 512)
     conv = _jax_state_to_port(js)
     if ts.tail is not None:
+        # the padded ids (-1 to the quantized size), the whole searched
+        # width, all -1 lists and zero counts on the padding
         t_ids, sb_idx, sb_cnt = ts.tail
-        np.testing.assert_array_equal(t_ids.numpy(), conv.tail[0].numpy())
-        np.testing.assert_array_equal(sb_cnt.numpy(), conv.tail[2].numpy())
+        np.testing.assert_array_equal(t_ids.numpy(), np.asarray(js.tail[0]))
+        assert sb_idx.shape == np.asarray(js.tail[1]).shape
+        np.testing.assert_array_equal(sb_cnt.numpy(), np.asarray(js.tail[2]))
+        assert (t_ids < 0).any() and (sb_idx[t_ids < 0] == -1).all()
+        assert (sb_cnt[t_ids < 0] == 0).all()
         for r in range(t_ids.shape[0]):
             assert (set(sb_idx[r].tolist()) - {-1}
                     == set(conv.tail[1][r].tolist()) - {-1})
         # expand_tail_rows: block ids, -1 entries where JAX has them
-        jt = jnp.asarray(np.asarray(js.tail[1])[np.asarray(js.tail[0]) >= 0])
         np.testing.assert_array_equal(
             tsph.expand_tail_rows(conv.tail[1], ts.index.n_blocks).numpy(),
-            np.asarray(jsph.expand_tail_rows(jt, js.index.n_blocks)))
+            np.asarray(jsph.expand_tail_rows(js.tail[1], js.index.n_blocks)))
     for state in (ts, conv):
+        # the JAX sizes of a fresh process: the grid alone
         sels_t = tsph.classed_selections(state)
+        jsph._CLASS_SIZE_MEMO.clear()
         sels_j = jsph.classed_selections(js)
         assert [m for m, _ in sels_t] == [m for m, _ in sels_j]
         for (_, it), (_, ij) in zip(sels_t, sels_j):
-            np.testing.assert_array_equal(it.numpy(), ij[ij >= 0])
+            np.testing.assert_array_equal(it.numpy(), ij)
 
 
 @pytest.fixture(scope="module")
@@ -190,16 +196,19 @@ def _logger(events):
             events.append(("wvt", kw["err_mean"]))
         elif stage == "wvt_build":
             events.append(("build", kw["it"], kw["attempt"]))
+            events.append(("shape", kw["max_cand"], kw["classes"],
+                           kw["tail"]))
         elif stage == "wvt_retry":
             events.append(("retry", kw["it"]))
     return log
 
 
 def test_wvt_loop_classed_matches_jax(start, narrow, monkeypatch):
-    """Same err_mean trajectory, the same builds (iteration, attempt),
-    the same number of solves (iterations + retries; the JAX loop's
-    one-ahead speculation is off, so each call of its iteration program
-    is one solve), the same final positions and densities."""
+    """Same err_mean trajectory, the same builds (iteration, attempt)
+    with the same sticky list width, quantized class shape and far-tail
+    shape, the same number of solves (iterations + retries; the JAX
+    loop's one-ahead speculation is off, so each call of its iteration
+    program is one solve), the same final positions and densities."""
     jscene, ha, parts, tscene, tha, tparts = start
     monkeypatch.setenv("TOYCLUSTER_SPECULATE", "0")
     solves_j = []
@@ -225,6 +234,8 @@ def test_wvt_loop_classed_matches_jax(start, narrow, monkeypatch):
     np.testing.assert_allclose(errs_t, errs_j, rtol=2e-2)
     assert ([e for e in ev_t if e[0] == "build"]
             == [e for e in ev_j if e[0] == "build"])
+    assert ([e for e in ev_t if e[0] == "shape"]
+            == [e for e in ev_j if e[0] == "shape"])
     assert len(solves_j) == len(errs_t) + len(
         [e for e in ev_t if e[0] == "retry"])
     n = ref.n_gas

@@ -934,6 +934,35 @@ def test_replays_in_the_window_pass_the_sync_check(dev, monkeypatch):
     assert torch.cuda.get_sync_debug_mode() == 0
 
 
+def test_far_tail_replays_equal_eager_calls(dev, monkeypatch):
+    """The 1e6 par on the count-class engine, whose every build has
+    far-tail rows (a new state at every iteration): the iterations after
+    the first replay the program of the sticky shapes, each equal to the
+    eager body on the same inputs to the bit, and each replay counts its
+    far-tail calls under their own records."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.models import wvt
+    from toycluster_tpu_torch.pipeline import make_ics
+    calls, orig = _record_iterations(monkeypatch)
+    wvt.REPLAYED_LAUNCHES.clear()
+    logs = []
+    make_ics(parse_par_file(str(_PAR), wvt_max_iter=4), device="cuda",
+             engine="classed", write=False,
+             log=lambda stage, **kw: logs.append((stage, kw)))
+    builds = [kw for s, kw in logs if s == "wvt_build"]
+    assert builds and all(b["tail_rows"] > 0 for b in builds)
+    replays = [c for c in calls if c[4]]
+    assert len(replays) >= 3 and all(c[1].tail is not None for c in replays)
+    assert (wvt.REPLAYED_LAUNCHES["solve_density_sb"]
+            == wvt.REPLAYED_LAUNCHES["wvt_displacement_sb"] == len(replays))
+    monkeypatch.setattr(wvt, "ITER_PROGRAMS", False)
+    for loop, state, args, out, _, _ in replays:
+        eager = orig(loop, state, *args)
+        assert sorted(eager) == sorted(out)
+        for k, v in eager.items():
+            assert torch.equal(v, out[k]), k
+
+
 @pytest.mark.parametrize("engine", ["stream", "classed"])
 def test_program_launches_equal_eager_launches(dev, monkeypatch, engine):
     """The same run with the programs on and off launches every kernel

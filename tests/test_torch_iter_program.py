@@ -358,9 +358,11 @@ def test_new_classed_shape_makes_a_new_program(memo, monkeypatch):
 
 @pytest.mark.parametrize("rule", ["tail", "large", "off"])
 def test_eager_rules(memo, monkeypatch, rule):
-    """A count-class state with far-tail rows, more than PROGRAM_MAX_GAS
-    gas, or ITER_PROGRAMS off: the iteration runs eagerly, no program is
-    made, and the rule is logged once."""
+    """More than PROGRAM_MAX_GAS gas, or ITER_PROGRAMS off: the
+    iteration runs eagerly, no program is made, and the rule is logged
+    once.  "tail" is no rule: a count-class state with far-tail rows
+    makes a program at its first iteration and replays it at the next,
+    with the far-tail calls' launches counted apart."""
     engine = "classed" if rule == "tail" else "stream"
     if rule == "tail":
         monkeypatch.setattr(tsph, "MAX_CAND_START", 4)
@@ -376,6 +378,13 @@ def test_eager_rules(memo, monkeypatch, rule):
     assert (state.tail is not None) == (rule == "tail")
     for it in (0, 1):
         _iterate(L, state, inputs, 1.02, it)
+    if rule == "tail":
+        assert (L.captured, L.replayed, L.eager) == (1, 1, 0)
+        (prog,) = _programs(L)
+        assert prog.state.tail is not None
+        assert [s for s, _ in logs] == ["wvt_graph"]
+        assert sum(L.sb_launches.values()) == 0   # no kernel on the CPU
+        return
     assert (L.captured, L.replayed, L.eager) == (0, 0, 2)
     assert _programs(L) == []
     assert logs == [("wvt_eager", dict(it=0, rule=rule))]

@@ -95,7 +95,7 @@ def neighbour_state_from_numpy(index: dict, cand: dict, h_cap, *,
     scalars), ``h_cap`` (P,), ``tail`` its far-tail rows (ids (T,) with
     -1 padding rows, superblock lists (T, M_sb), counts (T,)) or None,
     ``sb`` whether the lists hold superblock ids.  Padding tail rows are
-    dropped."""
+    kept, as the port pads them (id -1, list all -1, count 0)."""
     from .models.sph import NeighbourState
     from .ops.blocks import BlockIndex, CandidateList
 
@@ -110,10 +110,7 @@ def neighbour_state_from_numpy(index: dict, cand: dict, h_cap, *,
                        sb_overflow=int(cand.get("sb_overflow", 0)),
                        sb_count=c.get("sb_count"))
     if tail is not None:
-        ids, sb_idx, sb_cnt = (np.asarray(x) for x in tail)
-        keep = ids >= 0
-        tail = tuple(torch.as_tensor(np.ascontiguousarray(x[keep]),
-                                     device=device)
-                     for x in (ids, sb_idx, sb_cnt))
+        tail = tuple(torch.as_tensor(np.array(x), device=device)
+                     for x in tail)
     h = torch.as_tensor(np.asarray(h_cap, np.float32), device=device)
     return NeighbourState(index=bi, cand=cl, h_cap=h, tail=tail, sb=sb)

@@ -99,7 +99,7 @@ def sph_curl(scene, parts, state: sph_mod.NeighbourState):
     src8, pos_t, h_b, wfac, ap_t, packed = _curl_inputs(scene, parts, bi)
 
     def curl(ids, rows, cnt, sb_mode):
-        idc = slice(None) if ids is None else ids.long()
+        idc = slice(None) if ids is None else torch.clamp(ids, min=0).long()
         return (stream_curl(src8, rows, cnt, pos_t[idc], h_b[idc],
                             wfac[idc], ap_t[idc], float(scene.mpart_gas),
                             float(scene.boxsize),

@@ -249,19 +249,58 @@ def refresh_candidates(state: NeighbourState, pos_sorted_gas,
 # The count-class engine: block-granular lists, count classes, far tail
 # --------------------------------------------------------------------------
 
+def quantize_size(n, nb, m=0, memo=None):
+    """The JAX package's ``_quantize_size``: ``n`` rows rounded up onto
+    the grid {nb, nb/4, nb/16, nb/64} (at least 64 rows), so that a
+    class's or the far tail's size, and with it the WVT loop's iteration
+    program, repeats from one build to the next.  ``memo`` (a dict, keyed
+    by (m, nb), m the class width or -1 for the far tail) makes the size
+    sticky: it never shrinks below the size the memo holds while ``n``
+    fits it, and the size is stored back.  Without a memo, the grid
+    alone."""
+    size = max(nb, 64)
+    floor = max(n, 64, nb // 64)
+    while size // 4 >= floor:
+        size //= 4
+    if memo is not None:
+        prev = memo.get((m, nb))
+        if prev is not None and n <= prev:
+            size = prev
+        memo[(m, nb)] = size
+    return size
+
+
+def _pad_ids(ids, size):
+    """(size,) int32: ``ids`` followed by -1."""
+    out = ids.new_full((size,), -1, dtype=torch.int32)
+    out[:ids.shape[0]] = ids
+    return out
+
+
 def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
-                            symmetric=False, radius_sym_gas=None):
+                            symmetric=False, radius_sym_gas=None,
+                            widths=None):
     """Sort, blocks and block-granular candidate lists (the JAX package's
     ``_build_neighbours_blocks``).  The list width starts at
     MAX_CAND_START and grows on overflow up to MAX_CAND_CAP, the
     superblock budget grows up to MS_CAP; rows over either budget once
     the widths stop growing become far-tail rows with superblock lists
-    (``NeighbourState.tail``).  With ``radius_sym_gas`` the range is the
-    union of the gather and the symmetric displacement range.  (The JAX
-    package remembers the widths of earlier builds and quantizes the
-    class sizes so that its compiled shapes repeat; here every build
-    starts from the first widths and keeps exact class sizes, so the WVT
-    loop's iteration program of a build seldom serves the next.)"""
+    (``NeighbourState.tail``): their ids padded with -1 to
+    ``quantize_size`` (m = -1), the lists at the whole searched width
+    (rows of padded ids all -1, counts 0).  With ``radius_sym_gas`` the
+    range is the union of the gather and the symmetric displacement
+    range.
+
+    ``widths``: the memo of one WVT relaxation (a dict, also the memo of
+    ``classed_selections`` and of the tail size): the list width, the
+    superblock budget and the far-tail width start from the ones it
+    holds, grow as above and are stored back, never shrinking, so that
+    the relaxation's builds keep the shapes of its iteration program
+    (models/wvt.py).  The JAX package keeps these memos per process
+    (``_LAST_MAX_CAND``, ``_CLASS_SIZE_MEMO``); the port's lives as long
+    as the relaxation that holds it.  Without it every build starts from
+    the first widths and the tail gets the grid alone."""
+    memo = {} if widths is None else widths
     bi = blk.build_blocks(pos_gas, boxsize)
     nb = bi.n_blocks
     ns = bi.sb_lo.shape[0]
@@ -271,7 +310,8 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
     if radius_sym_gas is not None:
         sym = pad_sorted(radius_sym_gas, bi.order, bi.n_padded)
         radius_sym = sym.reshape(nb, blk.BLOCK).amax(dim=1)
-    max_cand, max_super, tail = MAX_CAND_START, None, None
+    max_cand = memo.get("max_cand", MAX_CAND_START)
+    max_super, tail = memo.get("ms"), None
     ms_cap = min(ns, MS_CAP)
     while True:
         ms = (min(max_super, ns) if max_super is not None
@@ -295,31 +335,42 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
         if need <= MAX_CAND_CAP and cand.sb_overflow <= 0:
             max_cand = min(MAX_CAND_CAP, -(-need // 128) * 128)
             continue
-        ids = torch.nonzero(flagged)[:, 0].to(torch.int32)
+        flagged_ids = torch.nonzero(flagged)[:, 0].to(torch.int32)
+        ids = _pad_ids(flagged_ids, quantize_size(
+            flagged_ids.shape[0], nb, -1, widths))
         sym = radius_sym if radius_sym is not None else radius
-        m_sb = TAIL_WIDTH_START
+        m_sb = memo.get("m_sb", TAIL_WIDTH_START)
         while True:
             cand_sb = blk.find_candidates_super(bi, ids, radius, sym,
                                                 boxsize, max_cand=m_sb)
             if cand_sb.overflow <= 0:
                 break
             m_sb = -(-int((m_sb + cand_sb.overflow) * 1.12) // 128) * 128
-        width = max(int(cand_sb.count.max()), 1)
-        tail = (ids, cand_sb.idx[:, :width].contiguous(), cand_sb.count)
+        memo["m_sb"] = m_sb
+        # padded ids have no hits: their lists are all -1, their counts 0
+        tail = (ids, cand_sb.idx, cand_sb.count)
         break
+    memo["max_cand"] = max_cand
+    memo["ms"] = ms
     return NeighbourState(index=bi, cand=cand, h_cap=h_cap, tail=tail,
                           sb=False)
 
 
-def classed_selections(state: NeighbourState):
-    """Receiver blocks bucketed by candidate count: [(m, ids)], ids (S,)
-    int32 the blocks whose count lies in (previous edge, m], m =
-    min(edge, list width) for the edges CLASS_EDGES.  Far-tail rows are
-    in no class."""
+def classed_selections(state: NeighbourState, sizes=None):
+    """Receiver blocks bucketed by candidate count: [(m, ids)], ids int32
+    the blocks whose count lies in (previous edge, m], m = min(edge, list
+    width) for the edges CLASS_EDGES, padded with -1 to ``quantize_size``
+    (m the class width; ``sizes`` its memo, the relaxation's ``widths``
+    of ``build_neighbours_blocks``, or None for the grid alone).
+    Far-tail rows are in no class.  Reads the counts on the host."""
+    nb = state.index.n_blocks
     counts = state.cand.count
     if state.tail is not None:
-        counts = counts.clone()
-        counts[state.tail[0].long()] = torch.iinfo(torch.int32).max
+        # padded tail ids (-1) land on the extra row nb, cut off after
+        t = state.tail[0].long()
+        counts = torch.cat([counts, counts.new_zeros((1,))])
+        counts[torch.where(t >= 0, t, nb)] = torch.iinfo(torch.int32).max
+        counts = counts[:nb]
     sels, lo = [], 0
     for edge in CLASS_EDGES:
         m = min(edge, state.max_cand)
@@ -328,7 +379,8 @@ def classed_selections(state: NeighbourState):
         ids = torch.nonzero((counts > lo) & (counts <= m))[:, 0]
         lo = m
         if ids.numel():
-            sels.append((m, ids.to(torch.int32)))
+            sels.append((m, _pad_ids(ids.to(torch.int32), quantize_size(
+                ids.shape[0], nb, m, sizes))))
         if m >= state.max_cand:
             break
     return sels
@@ -352,28 +404,37 @@ def run_classed(state: NeighbourState, fn, tail_fn=None, sels=None):
     ``tail_fn(ids, sb_rows, sb_cnt)``; each returns a tuple of (S, 128,
     ...) tensors, scattered here into (nb, 128, ...) tensors.  ``sels``:
     ``classed_selections(state)`` from a caller that made it already
-    (making it reads the counts on the host)."""
+    (making it reads the counts on the host).
+
+    Padded ids (-1), as in the JAX package: their rows are all -1 and
+    their counts 0, the callers gather their receivers at
+    ``torch.clamp(ids, min=0)``, and their results are dropped: the
+    scatter writes them into an extra row nb that is cut off (an index
+    copy, no boolean mask, so nothing here syncs with the host)."""
+    nb = state.index.n_blocks
     outs = None
 
     def scatter(ids, res):
         nonlocal outs
         if outs is None:
-            outs = [r.new_zeros((state.index.n_blocks,) + r.shape[1:])
-                    for r in res]
+            outs = [r.new_zeros((nb + 1,) + r.shape[1:]) for r in res]
+        dst = torch.where(ids >= 0, ids, nb).long()
         for o, r in zip(outs, res):
-            o[ids.long()] = r
+            o.index_copy_(0, dst, r)
 
     for m, ids in classed_selections(state) if sels is None else sels:
-        idc = ids.long()
-        rows = state.cand.idx[idc, :m].contiguous()
-        cnt = torch.clamp(state.cand.count[idc], max=m)
+        idc = torch.clamp(ids, min=0).long()
+        pad = (ids < 0)[:, None]
+        rows = torch.where(pad, -1, state.cand.idx[idc, :m])
+        cnt = torch.where(pad[:, 0], 0,
+                          torch.clamp(state.cand.count[idc], max=m))
         scatter(ids, fn(ids, rows, cnt, m))
     if state.tail is not None:
         if tail_fn is None:
             raise RuntimeError("the neighbour state carries far-tail rows "
                                "but the caller provided no tail_fn")
         scatter(state.tail[0], tail_fn(*state.tail))
-    return outs
+    return [o[:nb] for o in outs]
 
 
 def source_blocks(pos_pad, hm_pad):
@@ -411,7 +472,7 @@ def _solve_classed(state, h0_b, cfg, mpart, boxsize):
               if pos_t.is_cuda else None)
 
     def solve(ids, rows, sb_mode):
-        idc = ids.long()
+        idc = torch.clamp(ids, min=0).long()
         return solve_density(
             pos_t, valid_t, rows, pos_t[idc], h0_b[idc], cap_b[idc],
             float(mpart), float(boxsize), kernel=cfg.sph_kernel,

@@ -46,13 +46,16 @@ first iteration of a list shape the iteration runs eagerly and a graph of
 the same body is captured on static buffers; every later iteration of
 that shape, queued ones included, copies its inputs in, replays the graph
 and clones the outputs out, so a replay runs the same kernels on the same
-inputs as the eager call and gives the same bits.  The stream engine's
-sticky list width (``sph.trim_width``) lets a list refresh find the graph
-it has.  Iterations run eagerly by rule: above PROGRAM_MAX_GAS gas (the
-JAX package's _LARGE_N) and on a count-class state with far-tail rows
-(rebuilt at the next iteration); ``ITER_PROGRAMS = False`` turns the
-programs off.  On the CPU a program runs the body on its static buffers,
-without a graph.
+inputs as the eager call and gives the same bits.  The shapes repeat as
+in the JAX loop: the stream engine's sticky list width
+(``sph.trim_width``) lets a list refresh find the graph it has; the
+count-class engine's sticky list, superblock and far-tail widths and its
+quantized class and far-tail sizes (``sph.build_neighbours_blocks``,
+``sph.classed_selections``, one memo a relaxation) let a build find it,
+far-tail states included, which are rebuilt at every iteration.
+Iterations run eagerly above PROGRAM_MAX_GAS gas (derived from the
+card's memory) and with ``ITER_PROGRAMS = False``.  On the CPU a program
+runs the body on its static buffers, without a graph.
 """
 
 from __future__ import annotations
@@ -117,17 +120,27 @@ SCALARS = ("err_max", "err_mean", "n_sat", "dmax_rel", "p999_rel",
 # with True (the default) the iterations run through iteration programs
 # (module docstring); with False every iteration runs eagerly
 ITER_PROGRAMS = True
-# above this many gas particles every iteration runs eagerly (the JAX
-# package's _LARGE_N, above which its iteration leaves the one program)
-PROGRAM_MAX_GAS = 8_000_000
+# above this many gas particles every iteration runs eagerly.  Derived
+# for one 80 GiB H100 (chip_smoke.py steps 6 and 11): the programs'
+# memory (``wvt_graph``'s ``added_gib``: static buffers and graph pool)
+# measured 176-355 B a gas particle at 5e5 and 5e6 gas on both engines,
+# the eager peak 357.5 B at 5e7 gas (stream engine); (355 + 357.5) B x
+# 6e7 = 39.8 GiB, under half of the card, which leaves the rest to the
+# count-class engine's larger eager peak and the allocator's cache
+PROGRAM_MAX_GAS = 60_000_000
 # live iteration programs of a loop: the current key and the one before
 PROGRAMS_LIVE = 2
-# the kernel launches that program replays made, by kernel (the kernels'
-# own ``launches`` counters hold them too)
+# the kernel launches that program replays made, by record name: the
+# kernel's, the far-tail calls' under the kernel's name + "_sb" (the
+# kernels' own ``launches`` counters hold them too)
 REPLAYED_LAUNCHES: Counter = Counter()
-# the hand-written kernels an iteration launches
+# the hand-written kernels an iteration launches, and those of them that
+# the far-tail rows launch in superblock mode (counted apart, under the
+# kernel's name + "_sb")
 _KERNELS = (_sp.stream_wvt, _cp.solve_density, _cp.wvt_displacement,
             _cp.fused_wvt)
+_SB_KERNELS = (_cp.solve_density, _cp.wvt_displacement)
+_KERNEL_OF = {k.__name__: k for k in _KERNELS}
 
 
 def percentile(x, q):
@@ -140,6 +153,19 @@ def percentile(x, q):
     lo = int(rank)
     return torch.lerp(v[lo], v[min(lo + 1, v.numel() - 1)],
                       float(rank - np.float32(lo)))
+
+
+def class_shape(sels):
+    """((width, rows), ...) of classed selections, or None: the JAX
+    loop's ``class_shape``."""
+    return None if sels is None else tuple(
+        (m, int(ids.shape[0])) for m, ids in sels)
+
+
+def tail_shape(state):
+    """(rows, width) of a state's far-tail lists, or None: the JAX
+    loop's ``tail_shape``."""
+    return None if state.tail is None else tuple(state.tail[1].shape)
 
 
 def _drift_budget(kernel):
@@ -213,11 +239,17 @@ def _warm_ratio(rho_model, rho_model_prev):
 
 
 class _Loop:
-    """Constants of one relaxation, its iteration programs' counts and the
-    stream engine's sticky list width memo (``widths``)."""
+    """Constants of one relaxation, its iteration programs' counts and its
+    width memo (``widths``): the stream engine's sticky list width, or the
+    count-class engine's sticky widths and class and far-tail sizes."""
 
-    # (state, its classed selections), made once a state (``selections``)
+    # (state, its classed selections), made once a state (``selections``);
+    # the width memo (a loop made without __init__ has none: grid sizes);
+    # the far-tail rows' superblock-mode launches of the eager runs of
+    # ``body``, by record name (a capture sets them back)
     _sels = (None, None)
+    widths = None
+    sb_launches = Counter()
 
     def __init__(self, scene: Scene, ha: HaloArrays, n_gas: int,
                  engine: str, device, log=stage_log):
@@ -237,7 +269,7 @@ class _Loop:
         # needs no host read of the halo masses
         self.gas_halos = sph_mod.gas_halos(ha)
         self.log = log
-        self.widths = {} if engine == "stream" else None
+        self.widths = {}
         # the eager iterations' dynamic scalars (``iterate``)
         self.it_d = torch.zeros((), dtype=torch.int32, device=device)
         self.margin_d = torch.zeros((), dtype=torch.float32, device=device)
@@ -264,7 +296,8 @@ class _Loop:
         iteration (it reads the counts on the host) and kept for the
         iterations after, speculative ones included."""
         if self._sels[0] is not state:
-            self._sels = (state, sph_mod.classed_selections(state))
+            self._sels = (state, sph_mod.classed_selections(state,
+                                                            self.widths))
         return self._sels[1]
 
     def solve_classed(self, state, pos_pad, h0_s, cap_s, hm_s, hm_src,
@@ -306,13 +339,13 @@ class _Loop:
             return packs["fused"]
 
         def fused(ids, rows, cnt):
-            idc = ids.long()
+            idc = torch.clamp(ids, min=0).long()
             return fused_wvt(pos_t, hm_blocks, rows, cnt, pos_t[idc],
                              h0_b[idc], cap_b[idc], hm_b[idc], self.mpart,
                              self.boxsize, packed=packed_fused(), **kw)
 
         def two_pass(ids, rows, sb_mode):
-            idc = ids.long()
+            idc = torch.clamp(ids, min=0).long()
             res = solve_density(pos_t, valid_t, rows, pos_t[idc], h0_b[idc],
                                 cap_b[idc], self.mpart, self.boxsize,
                                 sb_mode=sb_mode, packed=packed(None),
@@ -322,13 +355,20 @@ class _Loop:
                 self.boxsize, kernel=self.kernel, sb_mode=sb_mode,
                 packed=packed(h_b3)),)
 
+        def tail(ids, sb_rows, sb_cnt):
+            n0 = [k.launches for k in _SB_KERNELS]
+            res = two_pass(ids, sb_rows, True)
+            self.sb_launches = self.sb_launches + Counter(
+                {k.__name__ + "_sb": k.launches - n
+                 for k, n in zip(_SB_KERNELS, n0)})
+            return res
+
         return sph_mod.run_classed(
             state,
             lambda ids, rows, cnt, m: (fused(ids, rows, cnt)
                                        if m <= FUSED_WIDTH else
                                        two_pass(ids, rows, False)),
-            lambda ids, sb_rows, sb_cnt: two_pass(ids, sb_rows, True),
-            sels=self.selections(state) if sels is None else sels)
+            tail, sels=self.selections(state) if sels is None else sels)
 
     def body(self, state, sels, pos_gas, h_prev, rhom_prev, sat_mask,
              margin_d, fac_gas, step, err_last, it_d):
@@ -420,28 +460,22 @@ class _Loop:
                     step_new=step_new, fac_new=fac_new,
                     saturated=saturated[:n_gas], scalars=scalars)
 
-    def eager_rule(self, state):
-        """Why an iteration on ``state`` runs eagerly, or None: "off"
-        (ITER_PROGRAMS), "large" (more than PROGRAM_MAX_GAS gas), "tail"
-        (a count-class state with far-tail rows, rebuilt at the next
-        iteration)."""
+    def eager_rule(self):
+        """Why an iteration runs eagerly, or None: "off" (ITER_PROGRAMS),
+        "large" (more than PROGRAM_MAX_GAS gas)."""
         if not ITER_PROGRAMS:
             return "off"
         if self.n_gas > PROGRAM_MAX_GAS:
             return "large"
-        if state.tail is not None:
-            return "tail"
         return None
 
     def program_key(self, state, sels):
         """The shapes and constants an iteration program is made for:
-        engine, gas, blocks, list width, the classed class shape (width,
-        rows) and tail shape, kernel, desnngb, cool core and beta."""
+        engine, gas, blocks, list width, the classed class shape
+        (``class_shape``) and tail shape (``tail_shape``), kernel,
+        desnngb, cool core and beta."""
         return (self.engine, self.n_gas, state.index.n_blocks,
-                state.max_cand,
-                None if sels is None else tuple(
-                    (m, int(ids.shape[0])) for m, ids in sels),
-                None if state.tail is None else tuple(state.tail[1].shape),
+                state.max_cand, class_shape(sels), tail_shape(state),
                 self.kernel, self.desnngb, self.cool_core, self.beta)
 
     def iterate(self, state, pos_gas, h_prev, rhom_prev, sat_mask,
@@ -457,7 +491,7 @@ class _Loop:
         sels = self.selections(state) if self.engine == "classed" else None
         inputs = (pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step,
                   err_last)
-        rule = self.eager_rule(state)
+        rule = self.eager_rule()
         key = None if rule else self.program_key(state, sels)
         prog = self.programs.get(key)
         if prog is not None:
@@ -487,18 +521,24 @@ class _Loop:
         loaded the kernels), keep it with the one before it, free older
         ones, and log ``wvt_graph``.  A new key comes only from a build
         or a list refresh, whose synchronisation finished every replay
-        of the programs freed here."""
+        of the programs freed here.  On a CUDA device the log also holds
+        ``added_gib``, the device memory the allocator reserved for the
+        program (its static buffers and the growth of the graphs' pool)."""
         t0 = time.perf_counter()
-        prog = _IterProgram(state, sels, inputs)
+        graph = inputs[0].is_cuda
+        reserved = torch.cuda.memory_reserved() if graph else 0
         while len(self.programs) >= PROGRAMS_LIVE:
             self.programs.popitem(last=False)
-        graph = inputs[0].is_cuda
+        prog = _IterProgram(state, sels, inputs)
         if graph:
             prog.capture(self)
         self.programs[key] = prog
         self.captured += 1
+        added = ({"added_gib": (torch.cuda.memory_reserved() - reserved)
+                  / 2**30} if graph else {})
         self.log("wvt_graph", it=it, key=key, graph=graph,
-                 seconds=time.perf_counter() - t0, kernels=prog.launches)
+                 seconds=time.perf_counter() - t0, kernels=prog.launches,
+                 **added)
 
     def speculate(self, state, out, margin_w, sat_false, it):
         """Iteration ``it`` queued from the previous iteration's device
@@ -517,10 +557,14 @@ class _Loop:
 class _IterProgram:
     """The iteration ``body`` of one key on static buffers: the loop
     arrays and dynamic scalars (copied or filled in before each run) and
-    the state's lists, counts, cap and class ids (copied in when the
-    state changes).  On a CUDA device a graph captured on them is
-    replayed; on the CPU the body runs on them.  Outputs are cloned out,
-    so a queued run cannot overwrite what a retry still reads."""
+    the state's lists, counts, cap, class ids and far-tail rows (ids,
+    superblock lists, counts), copied in when the state changes (a state
+    with far-tail rows at every iteration: it is rebuilt at each).  On a
+    CUDA device a graph captured on them is replayed; on the CPU the body
+    runs on them.  Outputs are cloned out, so a queued run cannot
+    overwrite what a retry still reads.  ``launches``: the kernel
+    launches of one run, by record name (the far-tail calls' under the
+    kernel's name + "_sb")."""
 
     def __init__(self, state, sels, inputs):
         self.inputs = [torch.empty_like(x) for x in inputs]
@@ -528,24 +572,25 @@ class _IterProgram:
         self.margin = torch.zeros((), dtype=torch.float32, device=dev)
         self.it = torch.zeros((), dtype=torch.int32, device=dev)
         cand = state.cand
-        self.lists = [torch.empty_like(cand.idx), torch.empty_like(cand.count),
-                      torch.empty_like(state.h_cap)]
+        self.lists = [torch.empty_like(x) for x in (
+            cand.idx, cand.count, state.h_cap) + (state.tail or ())]
         # the body reads the block count of the index, nothing else
         none = cand.idx.new_empty((state.index.n_blocks, 0))
         self.state = state._replace(
             index=blk.BlockIndex(*(none,) * 7),
             cand=cand._replace(idx=self.lists[0], count=self.lists[1],
-                               sb_count=None), h_cap=self.lists[2])
+                               sb_count=None), h_cap=self.lists[2],
+            tail=None if state.tail is None else tuple(self.lists[3:]))
         self.sels = (None if sels is None else
                      [(m, torch.empty_like(ids)) for m, ids in sels])
         self.source = None   # weak reference to the lists the buffers hold
         self.graph = self.outputs = None
-        self.launches = {}   # kernel launches of one run, by kernel
+        self.launches = {}
 
     def load(self, state, sels, inputs, margin_w, it):
         if self.source is None or self.source() is not state.cand.idx:
             for buf, x in zip(self.lists, (state.cand.idx, state.cand.count,
-                                           state.h_cap)):
+                                           state.h_cap) + (state.tail or ())):
                 buf.copy_(x)
             for (_, buf), (_, ids) in zip(self.sels or (), sels or ()):
                 buf.copy_(ids)
@@ -565,12 +610,14 @@ class _IterProgram:
     def capture(self, loop):
         """Capture ``loop.body`` into a CUDA graph on the loop's capture
         stream and memory pool.  A capture launches nothing, so the
-        kernels' counters are set back and the launches it recorded are
-        added at each replay instead.  Raises where capture fails."""
+        kernels' counters (and the loop's ``sb_launches``) are set back
+        and the launches it recorded are added at each replay instead.
+        Raises where capture fails."""
         if loop.stream is None:
             loop.stream = torch.cuda.Stream()
             loop.pool = torch.cuda.graph_pool_handle()
         before = [k.launches for k in _KERNELS]
+        sb_before = loop.sb_launches
         graph = torch.cuda.CUDAGraph()
         loop.stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(loop.stream):
@@ -584,9 +631,13 @@ class _IterProgram:
             graph.capture_end()
         torch.cuda.current_stream().wait_stream(loop.stream)
         for k, n in zip(_KERNELS, before):
-            if k.launches != n:
-                self.launches[k.__name__] = k.launches - n
+            name = k.__name__
+            sb = loop.sb_launches[name + "_sb"] - sb_before[name + "_sb"]
+            for rec, d in ((name, k.launches - n - sb), (name + "_sb", sb)):
+                if d:
+                    self.launches[rec] = d
             k.launches = n
+        loop.sb_launches = sb_before
         self.graph, self.outputs = graph, out
 
     def run(self, loop, state, sels, inputs, margin_w, it):
@@ -595,10 +646,9 @@ class _IterProgram:
             out = self.body(loop)
         else:
             self.graph.replay()
-            for k in _KERNELS:
-                n = self.launches.get(k.__name__, 0)
-                k.launches += n
-                REPLAYED_LAUNCHES[k.__name__] += n
+            for rec, n in self.launches.items():
+                _KERNEL_OF[rec.removesuffix("_sb")].launches += n
+                REPLAYED_LAUNCHES[rec] += n
             out = self.outputs
         return {k: v.clone() for k, v in out.items()}
 
@@ -696,10 +746,13 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     the iterations queued ahead (``speculated``), the ones adopted and
     the ones dropped, and each drop is logged (``wvt_drop``, with its
     reason).  It also counts the iteration programs made (``captured``;
-    each logged as ``wvt_graph`` with its key, seconds and the kernel
-    launches it holds), the iterations they ran (``replayed``) and the
-    iterations run eagerly by rule (``eager``; each rule logged once as
-    ``wvt_eager``).  ``wvt_build`` and ``wvt_refresh`` carry the device
+    each logged as ``wvt_graph`` with its key, seconds, the kernel
+    launches it holds and the memory it added), the iterations they ran
+    (``replayed``) and the iterations run eagerly by rule (``eager``;
+    each rule logged once as ``wvt_eager``).  ``wvt_build`` carries the
+    list width, the count classes' and the far tail's shapes (``classes``,
+    ``tail``: the JAX loop's ``class_shape`` and ``tail_shape``) and the
+    far-tail rows; ``wvt_build`` and ``wvt_refresh`` carry the device
     memory (``mem_gib``, ``peak_gib``) on a CUDA device."""
     global last_contract_frac
     sph_mod.check_engine(engine)
@@ -709,8 +762,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
         return parts, False
     dev = parts.device
     L = _Loop(scene, ha, n_gas, engine, dev, log)
-    build = (partial(sph_mod.build_neighbours, widths=L.widths)
-             if engine == "stream" else sph_mod.build_neighbours_blocks)
+    build = partial(sph_mod.build_neighbours if engine == "stream"
+                    else sph_mod.build_neighbours_blocks, widths=L.widths)
     desnngb, mpart, boxsize = L.desnngb, L.mpart, L.boxsize
     t_start = time.perf_counter()
 
@@ -839,11 +892,14 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                 drift_acc = 0.0
                 sort_drift_acc = 0.0
                 _sync(dev)
-                log("wvt_build", it=it, attempt=attempt,
-                    seconds=time.perf_counter() - t_build,
+                t_build = time.perf_counter() - t_build
+                log("wvt_build", it=it, attempt=attempt, seconds=t_build,
                     max_cand=state.max_cand,
+                    classes=class_shape(L.selections(state)
+                                        if engine == "classed" else None),
+                    tail=tail_shape(state),
                     tail_rows=(0 if state.tail is None
-                               else int(state.tail[0].shape[0])),
+                               else int((state.tail[0] >= 0).sum())),
                     **stage_memory(dev))
 
             if pending is not None and pending[0] == it:
