@@ -74,9 +74,20 @@ parent).
    1 the run moved past; prints each kernel call's device time (CUDA
    events around the wrapper), the checkpoint saves' times and the peak
    device memory per gas particle, the iteration programs made and
-   replayed and the WVT loop's seconds; at 5e7 gas, under
-   ``wvt.PROGRAM_MAX_GAS``, the loop must make programs and run no
-   iteration eagerly.  B: at Ntotal 1e7 on engine=classed,
+   replayed and the WVT loop's seconds; at 5e7 gas, under the stream
+   engine's ``wvt.PROGRAM_MAX_GAS``, the loop must make programs and run
+   no iteration eagerly, and it must park the particle set
+   (``wvt_offload``, ``wvt_restore``).  Then A's offload gate: the
+   particle set make_ics hands the loop on A's scene, relaxed twice from
+   a host copy to wvt_max_iter 1, with the offload off and on, must give
+   the same pos, rho, hsml, pid and halo to the bit, and the device
+   memory at the first build must be at least 2 GiB lower with the
+   offload.  A2: A's scene on engine=classed without the checkpoint,
+   with A's checks; the loop runs on programs or eagerly by the rule
+   "large" as the count-class engine's limit says, and prints which;
+   prints the builds with their far-tail rows, widths and memory, each
+   kernel record's device times, and the peak allocated and reserved a
+   gas particle.  B: at Ntotal 1e7 on engine=classed,
    a run stopped at wvt_max_iter 16 must leave it = 15 in a fresh
    checkpoint; a second run (default wvt_max_iter, the audit,
    ``profile_dir``) must resume at it = 16 with the saved step, pass step
@@ -157,7 +168,7 @@ parent).
    classed engine and, without gas, no kernel at all; the DM-only
    snapshot holds no gas and finite, nonzero DM speeds.
 10. Speculative dispatch of the WVT loop: the 1e6 par on both engines and
-   config 4 at Ntotal 1e7 (stream engine), each with TOYCLUSTER_SPECULATE
+   config 4 at Ntotal 5e6 (stream engine), each with TOYCLUSTER_SPECULATE
    at 1 and at 0, through ``make_ics(device="cuda", check=True)`` with the
    gates of step 4 (the 1e6 par) or step 5 (config 4) and the snapshot,
    then again under the profiler (``toycluster_tpu_torch.trace``).  From
@@ -477,17 +488,21 @@ def check_curl(torch, sp, args, kw, valid, parent=None):
     chooses; the warp tiles the kernel walked must be the plain oracle's,
     row by row; its bound counts the pairs of the tiles that its chunk
     test keeps at the curl's range (r < hsml_i)."""
-    plain_kw = {k: v for k, v in kw.items() if k != "packed"}
+    plain_kw = {k: v for k, v in kw.items() if k not in ("packed",
+                                                         "cluster")}
     sb_mode = kw.get("sb_mode", False)
     src, cand, cnt, xi, hsml = args[:5]
     box = args[8]
     S = cand.shape[0]
-    cluster = sp._cluster_size(S, cand.shape[1] * (8 if sb_mode else 1),
-                               None)
+    kw = dict(kw)
+    if kw.get("cluster") is None:   # the wrapper's rule
+        kw["cluster"] = sp._cluster_size(
+            S, cand.shape[1] * (8 if sb_mode else 1), None)
+    cluster = kw["cluster"]
     st = torch.zeros((S, 5), dtype=torch.int32, device=cand.device)
 
     def run(**options):
-        return sp.stream_curl(*args, **kw, **options)
+        return sp.stream_curl(*args, **{**kw, **options})
 
     got = run(stats=st)
     keep, ok = sp.curl_keep(src, cand, cnt, xi, hsml, box, sb_mode=sb_mode,
@@ -626,12 +641,15 @@ def check_solve(torch, sp, cp, args, kw, valid):
     pos, valid_t, cand, xi, _, cap, _, box = args
     S = cand.shape[0]
     sb_mode = kw.get("sb_mode", False)
-    cluster = cp._cluster_size(S, cand.shape[1] * (8 if sb_mode else 1),
-                               None)
+    if kw.get("cluster") is None:   # the wrapper's rule
+        kw["cluster"] = cp._cluster_size(
+            S, cand.shape[1] * (8 if sb_mode else 1), None)
+    cluster = kw["cluster"]
     st = torch.zeros((S, 4), dtype=torch.int32, device=cand.device)
 
     def run(**options):
-        return cp.solve_density(*args, n_sweeps=n_sweeps, **kw, **options)
+        return cp.solve_density(*args, n_sweeps=n_sweeps,
+                                **{**kw, **options})
 
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
@@ -680,12 +698,15 @@ def check_disp(torch, sp, cp, args, kw, valid):
     pos, valid_t, h_blocks, cand, xi, h_i, _, box = args
     S = cand.shape[0]
     sb_mode = kw.get("sb_mode", False)
-    cluster = cp._cluster_size(S, cand.shape[1] * (8 if sb_mode else 1),
-                               None)
+    kw = dict(kw)
+    if kw.get("cluster") is None:   # the wrapper's rule
+        kw["cluster"] = cp._cluster_size(
+            S, cand.shape[1] * (8 if sb_mode else 1), None)
+    cluster = kw["cluster"]
     st = torch.zeros((S, 4), dtype=torch.int32, device=cand.device)
 
     def run(**options):
-        return cp.wvt_displacement(*args, **kw, **options)
+        return cp.wvt_displacement(*args, **{**kw, **options})
 
     got = run(stats=st)
     keep, ok = cp.displacement_keep(pos, valid_t, h_blocks, cand, xi, h_i,
@@ -822,7 +843,7 @@ def check_fused(torch, sp, cp, args, kw, valid, parent=None):
     return res
 
 
-def check_padded(torch, cp, c, kernel, sb_mode):
+def check_padded(torch, sp, cp, c, kernel, sb_mode):
     """Padded rows as the count-class engine makes them: the odd receiver
     rows of the cusp ``c`` (``cusp.class_inputs``) as one count class
     (block lists: solve_density, wvt_displacement, fused_wvt) or as
@@ -832,7 +853,9 @@ def check_padded(torch, cp, c, kernel, sb_mode):
     versions on the exact rows (step 3's tolerances), the padded rows'
     outputs must be finite, and they must be dropped: row 0, whose
     receivers they gather and which is no real id, stays zero.  Returns
-    the padded and the real row counts and the kernels held."""
+    the padded and the real row counts and the kernels held.  The
+    two-pass kernels run at ``stream_pair.padded_cluster``'s split, as
+    the count-class engine runs them."""
     from toycluster_tpu_torch.models import sph
     from toycluster_tpu_torch.ops import blocks as blk
     from toycluster_tpu_torch.ops.cusp import BOX
@@ -852,7 +875,8 @@ def check_padded(torch, cp, c, kernel, sb_mode):
     calls = [
         ("solve_density", lambda i, rows, n: cp.solve_density(
             pos_t, valid_t, rows, pos_t[i], h0[i], cap[i], 1.0, BOX,
-            sb_mode=sb_mode, **dev_kw)[:5],
+            sb_mode=sb_mode, cluster=sp.padded_cluster(rows, sb_mode),
+            **dev_kw)[:5],
          lambda: cp._solve_density_reference(
             pos_t, valid_t, cand[rl], pos_t[rl], h0[rl], cap[rl], 1.0,
             BOX, n_sweeps=cp.SOLVE_SWEEPS, sb_mode=sb_mode,
@@ -861,7 +885,8 @@ def check_padded(torch, cp, c, kernel, sb_mode):
         calls += [
             ("wvt_displacement", lambda i, rows, n: (cp.wvt_displacement(
                 pos_t, valid_t, c["h_b3"], rows, pos_t[i], hm[i], 1.0,
-                BOX, kernel=kernel),),
+                BOX, kernel=kernel,
+                cluster=sp.padded_cluster(rows, False)),),
              lambda: cp._wvt_displacement_reference(
                 pos_t, valid_t, c["h_b3"], cand[rl], pos_t[rl], hm[rl], 1.0,
                 BOX, kernel=kernel, sb_mode=False)),
@@ -959,7 +984,7 @@ def check_kernels_on_cusp(torch, sp, cp, device):
                 f"max|dwk|={r['err']:.3g} kernel_ms={r['ms']:.3f} "
                 f"plain_ms={r['plain_ms']:.3f} "
                 f"bound_ms={r['bound_ms']:.3f}")
-            n_pad, n_real, names = check_padded(torch, cp, c, kernel,
+            n_pad, n_real, names = check_padded(torch, sp, cp, c, kernel,
                                                 sb_mode)
             say(f"cusp 1e5 padded {'far-tail rows' if sb_mode else 'class'}"
                 f" kernel={kernel}: {n_real} rows padded to {n_pad}; "
@@ -1020,10 +1045,9 @@ def counted(torch, sp, cp, drive, record=True):
     counted nor recorded here: the program adds its launches at each
     replay (``wvt.REPLAYED_LAUNCHES``, by record name: the far-tail
     calls under their ``_sb`` records), so the inputs recorded are those
-    of an eager call.  Returns (drive's
-    result, launches by record name, launches by kernel, recorded inputs
-    (or the device ms of each call by record name), wall s, start
-    time)."""
+    of an eager call.  Returns (drive's result, launches by record
+    name, launches by kernel, recorded inputs (or, by record name, the
+    device ms and list shape of each call), wall s, start time)."""
     from toycluster_tpu_torch.models import bfield, sph, wvt
     from toycluster_tpu_torch.utils import logging as tlog
 
@@ -1044,8 +1068,12 @@ def counted(torch, sp, cp, drive, record=True):
                 if record:
                     recorded.setdefault(name, (args, kw))
                 else:
+                    # the call's (rows, width): its first int32 matrix
+                    shape = next(tuple(a.shape) for a in args
+                                 if torch.is_tensor(a) and a.ndim == 2
+                                 and a.dtype == torch.int32)
                     ev[1].record()
-                    recorded.setdefault(name, []).append(ev)
+                    recorded.setdefault(name, []).append((ev, shape))
             return out
         return call
 
@@ -1083,7 +1111,8 @@ def counted(torch, sp, cp, drive, record=True):
     by_name.update(wvt.REPLAYED_LAUNCHES)
     if not record:
         torch.cuda.synchronize()
-        recorded = {name: [s.elapsed_time(e) for s, e in evs]
+        recorded = {name: [(s.elapsed_time(e), shape)
+                           for (s, e), shape in evs]
                     for name, evs in recorded.items()}
     totals = {k.__name__: k.launches for k in kernels}
     launches = dict(totals)
@@ -1406,66 +1435,219 @@ def saved_it(recs):
     return max((i for i in its if (i + 1) % 16 == 0), default=None)
 
 
-def run_large(torch, sp, cp, tmp):
-    """Phase A: the config-4 preset at config 5's size (Ntotal 1e8, 5e7
-    gas; config 5's own preset needs par tags the repository lacks)
-    through ``make_ics(device="cuda", engine="stream", check=True,
-    wvt_checkpoint=...)``, counted without recording any kernel's inputs
-    (CUDA events time each kernel call instead), held to
-    ``check_config4``; the checkpoint holds the iteration ``saved_it``
-    names and the snapshot reads back.  Prints each stage's time and
-    device memory, each build's time and the checkpoint saves' times."""
+def kernel_ms_summary(tag, dev_ms):
+    """Print each kernel record's device ms a call (CUDA events around
+    the wrapper), by list shape (rows, width): the calls' count, mean,
+    least, most and sum."""
+    for name, calls in dev_ms.items():
+        for shape in sorted({sh for _, sh in calls}):
+            ms = [m for m, sh in calls if sh == shape]
+            say(f"[{tag}] {name} {shape}: {len(ms)} calls, device ms a "
+                f"call (CUDA events around the wrapper) mean "
+                f"{sum(ms) / len(ms):.3f}, least {min(ms):.3f}, most "
+                f"{max(ms):.3f}, sum {sum(ms):.3f}")
+
+
+def run_large(torch, sp, cp, tmp, engine):
+    """Phase A (``engine="stream"``) and A2 (``"classed"``): the config-4
+    preset at config 5's size (Ntotal 1e8, 5e7 gas; config 5's own preset
+    needs par tags the repository lacks) through ``make_ics(device=
+    "cuda", engine=engine, check=True)`` (A also with ``wvt_checkpoint``),
+    counted without recording any kernel's inputs (CUDA events time each
+    kernel call instead), held to ``check_config4``; the snapshot reads
+    back, and A's checkpoint holds the iteration ``saved_it`` names.  At
+    5e7 gas the loop parks the particle set (``wvt_offload``): the run
+    must log it and its rebuild.  The loop must make programs and run no
+    iteration eagerly under the engine's ``wvt.PROGRAM_MAX_GAS``, and run
+    every iteration eagerly by the rule "large" above it.  Prints each
+    stage's time and device memory, each build's time, widths, shapes and
+    memory, each kernel record's device times, the checkpoint saves'
+    times, and the peak device memory allocated and reserved, also a gas
+    particle.  Returns the run's stage-log records."""
     import shutil
+    from toycluster_tpu_torch.models import wvt
     from toycluster_tpu_torch.pipeline import make_ics
     ntotal = LARGE_NTOTAL
-    tag = f"config-4 {ntotal:.0e} stream"
+    tag = f"config-4 {ntotal:.0e} {engine}"
     out = Path(tmp) / "IC_large"
-    ck = Path(tmp) / "wvt_large.npz"
+    ck = Path(tmp) / "wvt_large.npz" if engine == "stream" else None
     cfg = config4(ntotal, out)
     say(f"[{tag}] free space for the snapshot in {tmp}: "
         f"{shutil.disk_usage(tmp).free / 2**30:.3f} GiB")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     mem0 = torch.cuda.memory_allocated()
+    reserved0 = torch.cuda.memory_reserved()
     (scene, parts), launches, totals, dev_ms, wall, t0 = counted(
-        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine="stream",
-                                        check=True, wvt_checkpoint=str(ck)),
-        record=False)
+        torch, sp, cp, lambda: make_ics(
+            cfg, device="cuda", engine=engine, check=True,
+            wvt_checkpoint=None if ck is None else str(ck)), record=False)
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     say(f"[{tag}] wall {wall:.3f} s; launches {launches}")
-    for name, ms in dev_ms.items():
-        say(f"[{tag}] {name}: device ms a call (CUDA events around the "
-            f"wrapper) {[round(m, 3) for m in ms]}")
-    recs = check_config4(torch, tag, cfg, "stream", scene, parts, totals, t0)
-    # under the program-size limit the loop runs on iteration programs
-    from toycluster_tpu_torch.models import wvt
+    kernel_ms_summary(tag, dev_ms)
+    recs = check_config4(torch, tag, cfg, engine, scene, parts, totals, t0)
+    n_gas = scene.npart_gas
+    offload = [r for r in recs if r["stage"] == "wvt_offload"]
+    restore = [r for r in recs if r["stage"] == "wvt_restore"]
+    say(f"[{tag}] offload {offload}; restore {restore}")
+    if not (wvt.offload_enabled(n_gas) and len(offload) == len(restore)
+            == 1):
+        fail(f"{tag}: {n_gas} gas, offload records {offload}, restore "
+             f"records {restore}")
+    builds = [r for r in recs if r["stage"] in ("wvt_build", "wvt_refresh")]
+    rows = [(r["stage"], r["it"], round(r["seconds"], 4), r["max_cand"],
+             r.get("tail_rows"), round(r["mem_gib"], 4),
+             round(r["peak_gib"], 4)) for r in builds]
+    say(f"[{tag}] builds and list refreshes (stage, it, s, width, "
+        f"far-tail rows, mem_gib, peak_gib): {rows}")
     done = [r for r in recs if r["stage"] == "wvt_done"][0]
     eager = [r["rule"] for r in recs if r["stage"] == "wvt_eager"]
     graphs = [r for r in recs if r["stage"] == "wvt_graph"]
-    say(f"[{tag}] WVT loop {done['seconds']:.6f} s; iteration programs "
-        f"made {done['captured']} (capture s "
+    limit = wvt.PROGRAM_MAX_GAS[engine]
+    say(f"[{tag}] WVT loop {done['seconds']:.6f} s, "
+        f"{done['particle_updates_per_s']:.6g} updates/s; builds "
+        f"{len([r for r in builds if r['stage'] == 'wvt_build'])} in "
+        f"{sum(r['seconds'] for r in builds if r['stage'] == 'wvt_build'):.3f}"
+        f" s; iteration programs made {done['captured']} (capture s "
         f"{[round(r['seconds'], 4) for r in graphs]}, added GiB "
         f"{[round(r.get('added_gib', 0.0), 4) for r in graphs]}), replayed "
         f"{done['replayed']}, eager {done['eager']} {eager}; "
-        f"PROGRAM_MAX_GAS {wvt.PROGRAM_MAX_GAS}")
-    if scene.npart_gas <= wvt.PROGRAM_MAX_GAS and (
-            eager or not done["captured"] or not done["replayed"]):
-        fail(f"{tag}: {scene.npart_gas} gas under PROGRAM_MAX_GAS, yet "
-             f"programs made {done['captured']}, replayed "
-             f"{done['replayed']}, eager rules {eager}")
-    saves = [r for r in recs if r["stage"] == "wvt_checkpoint"]
-    say(f"[{tag}] checkpoint saves (it, s): "
-        f"{[(r['it'], round(r['seconds'], 4)) for r in saves]}")
-    it, step, _ = read_checkpoint(ck)
-    if saved_it(recs) is None or it != saved_it(recs):
-        fail(f"{tag}: checkpoint holds it = {it}, expected {saved_it(recs)}")
-    say(f"[{tag}] checkpoint holds it = {it}, step = {step}")
-    say(f"[{tag}] peak device memory {peak / 2**30:.4f} GiB "
+        f"PROGRAM_MAX_GAS[{engine!r}] {limit}")
+    if n_gas <= limit and (eager or not done["captured"]
+                           or not done["replayed"]):
+        fail(f"{tag}: {n_gas} gas under PROGRAM_MAX_GAS, yet programs made "
+             f"{done['captured']}, replayed {done['replayed']}, eager rules "
+             f"{eager}")
+    # an eager loop runs each iteration, retry and dropped queued
+    # iteration through the body
+    calls = (done["iterations"] + done["dropped"]
+             + len([r for r in recs if r["stage"] == "wvt_retry"]))
+    if n_gas > limit and (eager != ["large"] or done["captured"]
+                          or done["eager"] != calls):
+        fail(f"{tag}: {n_gas} gas over PROGRAM_MAX_GAS, yet programs made "
+             f"{done['captured']}, eager iterations {done['eager']}, eager "
+             f"rules {eager}")
+    say(f"[{tag}] the loop ran "
+        f"{'eagerly by the rule large' if n_gas > limit else 'on programs'}"
+        f" ({n_gas} gas, limit {limit})")
+    if ck is not None:
+        saves = [r for r in recs if r["stage"] == "wvt_checkpoint"]
+        say(f"[{tag}] checkpoint saves (it, s): "
+            f"{[(r['it'], round(r['seconds'], 4)) for r in saves]}")
+        it, step, _ = read_checkpoint(ck)
+        if saved_it(recs) is None or it != saved_it(recs):
+            fail(f"{tag}: checkpoint holds it = {it}, expected "
+                 f"{saved_it(recs)}")
+        say(f"[{tag}] checkpoint holds it = {it}, step = {step}")
+        ck.unlink()
+    say(f"[{tag}] peak device memory {peak / 2**30:.4f} GiB allocated "
         f"({mem0 / 2**30:.4f} GiB held before the run), "
-        f"{peak / scene.npart_gas:.1f} B a gas particle")
+        f"{peak / n_gas:.1f} B a gas particle; {peak_reserved / 2**30:.4f} "
+        f"GiB reserved ({reserved0 / 2**30:.4f} GiB before), "
+        f"{peak_reserved / n_gas:.1f} B a gas particle")
     del parts
     check_snapshot(out, ntotal)
     out.unlink()
-    ck.unlink()
+    return recs
+
+
+class _Handed(Exception):
+    """Raised where the offload gate takes the particle set that
+    ``make_ics`` hands its WVT loop."""
+
+
+# the offload gate's depth: its two loops stop after iteration 1 (a
+# build, then a list refresh)
+OFFLOAD_GATE_ITER = 1
+# the fields the offload gate holds to the bit, and the most device
+# memory at the first build that the offload must save at 5e7 gas, GiB
+OFFLOAD_GATE_FIELDS = ("pos", "rho", "hsml", "pid", "halo")
+OFFLOAD_GATE_GIB = 2.0
+
+
+def run_offload_gate(torch):
+    """Phase A's offload gate: the particle set that ``make_ics`` hands
+    its WVT loop on phase A's scene (config 4 at Ntotal 1e8, 5e7 gas,
+    stream engine) is kept in host memory, then relaxed twice from it
+    through the holder, to wvt_max_iter OFFLOAD_GATE_ITER: with
+    TOYCLUSTER_WVT_OFFLOAD_N above 5e7 (offload off), then at its
+    default (on).  The two must give the same bits for
+    OFFLOAD_GATE_FIELDS, and the device memory at the first build
+    (``wvt_build``'s ``mem_gib``) must be at least OFFLOAD_GATE_GIB lower
+    with the offload.  Returns {offload: first build's mem_gib}."""
+    import os
+    from toycluster_tpu_torch.models import wvt
+    from toycluster_tpu_torch.particles import Particles
+    from toycluster_tpu_torch.pipeline import make_ics
+    from toycluster_tpu_torch.utils import logging as tlog
+    tag = f"offload gate, config-4 {LARGE_NTOTAL:.0e} stream"
+    cfg = config4(LARGE_NTOTAL, "unused", wvt_max_iter=OFFLOAD_GATE_ITER)
+    handed, regularise = {}, wvt.regularise_sph_particles
+
+    def hand(scene, ha, holder, **kw):
+        parts = holder.pop()
+        handed.update(scene=scene, ha=ha, host={
+            f: getattr(parts, f).cpu() for f in parts.__dataclass_fields__})
+        raise _Handed
+
+    wvt.regularise_sph_particles = hand
+    try:
+        make_ics(cfg, device="cuda", write=False)
+    except _Handed:
+        pass
+    finally:
+        wvt.regularise_sph_particles = regularise
+    if "host" not in handed:
+        fail(f"{tag}: make_ics did not hand its particle set over")
+    mem, got = {}, {}
+    try:
+        for on in (False, True):
+            if on:
+                os.environ.pop("TOYCLUSTER_WVT_OFFLOAD_N", None)
+            else:
+                os.environ["TOYCLUSTER_WVT_OFFLOAD_N"] = str(
+                    2 * handed["scene"].npart_gas)
+            holder = [Particles(**{f: x.to("cuda")
+                                   for f, x in handed["host"].items()})]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_allocated()
+            tlog.METRICS.clear()
+            t = time.perf_counter()
+            parts, _ = wvt.regularise_sph_particles(
+                handed["scene"], handed["ha"], holder, engine="stream")
+            wall = time.perf_counter() - t
+            recs = list(tlog.METRICS)
+            build = [r for r in recs if r["stage"] == "wvt_build"][0]
+            offload = [r for r in recs if r["stage"] == "wvt_offload"]
+            restore = [r for r in recs if r["stage"] == "wvt_restore"]
+            if bool(offload) != on or bool(restore) != on:
+                fail(f"{tag}: offload {on}, yet records {offload} "
+                     f"{restore}")
+            mem[on] = build["mem_gib"]
+            say(f"[{tag}] offload {'on' if on else 'off'}: relaxation "
+                f"{wall:.3f} s; {mem0 / 2**30:.4f} GiB allocated before, "
+                f"first build mem_gib {build['mem_gib']:.4f} peak_gib "
+                f"{build['peak_gib']:.4f}; offload {offload}; restore "
+                f"{restore}")
+            got[on] = {f: getattr(parts, f).cpu()
+                       for f in OFFLOAD_GATE_FIELDS}
+            del parts
+    finally:
+        os.environ.pop("TOYCLUSTER_WVT_OFFLOAD_N", None)
+    for f in OFFLOAD_GATE_FIELDS:
+        if not torch.equal(got[True][f], got[False][f]):
+            fail(f"{tag}: {f} differs with the offload on and off")
+    saved = mem[False] - mem[True]
+    say(f"[{tag}] {', '.join(OFFLOAD_GATE_FIELDS)} the same to the bit; "
+        f"the offload saved {saved:.4f} GiB at the first build "
+        f"({saved * 2**30 / handed['scene'].npart_gas:.1f} B a gas "
+        f"particle)")
+    if not saved >= OFFLOAD_GATE_GIB:
+        fail(f"{tag}: the offload saved {saved:.4f} GiB at the first build, "
+             f"less than {OFFLOAD_GATE_GIB}")
+    return mem
 
 
 def run_resume(torch, sp, cp, tmp):
@@ -2293,12 +2475,13 @@ def run_variants(torch, sp, cp, tmp, t0):
 
 # the runs of step 10, each with TOYCLUSTER_SPECULATE at 1 and at 0:
 # (tag, engine, config-4 at this Ntotal or None for the 1e6 par)
+# (config 4 at 5e6 keeps the script within its time; step 11 runs 1e7)
 SPEC_RUNS = (("1e6 par stream", "stream", None),
              ("1e6 par classed", "classed", None),
-             ("config-4 1e7 stream", "stream", 10_000_000))
+             ("config-4 5e6 stream", "stream", 5_000_000))
 # the runs whose speculating half must adopt a queued iteration (the
 # classed 1e6 par has far-tail rows at every build: nothing is queued)
-SPEC_MUST_ADOPT = ("1e6 par stream", "config-4 1e7 stream")
+SPEC_MUST_ADOPT = ("1e6 par stream", "config-4 5e6 stream")
 
 
 def spec_run(torch, sp, cp, tmp, tag, engine, ntotal):
@@ -2607,8 +2790,12 @@ def main():
             single_card_errs[engine, ntotal] = run_substructure(
                 torch, sp, cp, tmp, engine, ntotal, slow)
             t0 = phase(f"config-4 {ntotal:.0e}, engine={engine}", t0)
-        run_large(torch, sp, cp, tmp)
+        run_large(torch, sp, cp, tmp, "stream")
         t0 = phase(f"A: config-4 {LARGE_NTOTAL:.0e}, engine=stream", t0)
+        run_offload_gate(torch)
+        t0 = phase(f"A: the offload gate at {LARGE_NTOTAL:.0e}", t0)
+        run_large(torch, sp, cp, tmp, "classed")
+        t0 = phase(f"A2: config-4 {LARGE_NTOTAL:.0e}, engine=classed", t0)
         run_resume(torch, sp, cp, tmp)
         t0 = phase(f"B: config-4 {RESUME_NTOTAL:.0e} checkpoint -> resume, "
                    f"engine=classed", t0)

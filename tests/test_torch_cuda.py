@@ -988,3 +988,28 @@ def test_program_launches_equal_eager_launches(dev, monkeypatch, engine):
     assert runs[True][0] == runs[False][0]
     assert runs[True][1] > 0 and runs[False][1] == 0
     assert torch.equal(runs[True][2], runs[False][2])
+
+
+@pytest.mark.parametrize("engine", ["stream", "classed"])
+def test_offload_gives_the_same_bits_on_cuda(dev, monkeypatch, engine):
+    """``make_ics`` on the 60,000-particle config-4 scene with the
+    offload (TOYCLUSTER_WVT_OFFLOAD_N at 1) and without it: the same
+    particle set to the bit, and the loop parked and rebuilt it only
+    with the offload."""
+    from toycluster_tpu_torch import parse_par_file
+    from toycluster_tpu_torch.pipeline import make_ics
+    cfg = parse_par_file(str(_PAR), ntotal=60000, mass_ratio=1.0 / 3.0,
+                         substructure=True, wvt_max_iter=4)
+    runs = {}
+    for offload_n in ("1", str(10**12)):
+        monkeypatch.setenv("TOYCLUSTER_WVT_OFFLOAD_N", offload_n)
+        logs = []
+        _, parts = make_ics(cfg, device="cuda", engine=engine, write=False,
+                            log=lambda stage, **kw: logs.append(stage))
+        runs[offload_n] = (parts, logs)
+    (on, logs_on), (off, logs_off) = runs["1"], runs[str(10**12)]
+    assert logs_on.count("wvt_offload") == logs_on.count("wvt_restore") == 1
+    assert "wvt_offload" not in logs_off and "wvt_restore" not in logs_off
+    for k in ("pos", "vel", "pid", "halo", "u", "rho", "hsml",
+              "var_hsml_fac", "rho_model", "bfld"):
+        assert torch.equal(getattr(on, k), getattr(off, k)), k

@@ -358,7 +358,7 @@ def test_new_classed_shape_makes_a_new_program(memo, monkeypatch):
 
 @pytest.mark.parametrize("rule", ["tail", "large", "off"])
 def test_eager_rules(memo, monkeypatch, rule):
-    """More than PROGRAM_MAX_GAS gas, or ITER_PROGRAMS off: the
+    """More than the engine's PROGRAM_MAX_GAS gas, or ITER_PROGRAMS off: the
     iteration runs eagerly, no program is made, and the rule is logged
     once.  "tail" is no rule: a count-class state with far-tail rows
     makes a program at its first iteration and replays it at the next,
@@ -368,7 +368,7 @@ def test_eager_rules(memo, monkeypatch, rule):
         monkeypatch.setattr(tsph, "MAX_CAND_START", 4)
         monkeypatch.setattr(tsph, "MAX_CAND_CAP", 4)
     if rule == "large":
-        monkeypatch.setattr(twvt, "PROGRAM_MAX_GAS", 1000)
+        monkeypatch.setitem(twvt.PROGRAM_MAX_GAS, engine, 1000)
     if rule == "off":
         monkeypatch.setattr(twvt, "ITER_PROGRAMS", False)
     logs = []

@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from ..ops import blocks as blk
-from ..ops.stream_pair import pack_curl_sources, stream_curl
+from ..ops.stream_pair import (pack_curl_sources, padded_cluster,
+                               stream_curl)
 from ..particles import HaloArrays, Particles, gas_density
 from ..scene import Scene
 from . import positions as pos_mod
@@ -99,12 +100,15 @@ def sph_curl(scene, parts, state: sph_mod.NeighbourState):
     src8, pos_t, h_b, wfac, ap_t, packed = _curl_inputs(scene, parts, bi)
 
     def curl(ids, rows, cnt, sb_mode):
+        # the count classes and the far tail run on padded rows
         idc = slice(None) if ids is None else torch.clamp(ids, min=0).long()
+        cluster = None if ids is None else padded_cluster(rows, sb_mode)
         return (stream_curl(src8, rows, cnt, pos_t[idc], h_b[idc],
                             wfac[idc], ap_t[idc], float(scene.mpart_gas),
                             float(scene.boxsize),
                             kernel=scene.config.sph_kernel,
-                            sb_mode=sb_mode, packed=packed),)
+                            sb_mode=sb_mode, cluster=cluster,
+                            packed=packed),)
 
     if state.sb:
         (out,) = curl(None, state.cand.idx, state.cand.count, True)

@@ -28,7 +28,7 @@ import torch
 from .. import constants as const
 from ..ops import blocks as blk
 from ..ops.class_pair import pack_sources, solve_density
-from ..ops.stream_pair import stream_wvt
+from ..ops.stream_pair import padded_cluster, stream_wvt
 from ..particles import HaloArrays, Particles, gas_density
 from ..scene import Scene
 
@@ -107,14 +107,20 @@ def model_hsml(pos_box, ha, mpart, desnngb, boxsize, cool_core=None,
     return (desnngb * mpart / rho / const.FOURPITHIRD) ** (1.0 / 3.0)
 
 
+def permute_rows(arr, order, n_gas):
+    """``arr`` with its first ``n_gas`` rows gathered by ``order``; an
+    empty ``arr`` as it is."""
+    if arr.shape[0] == 0:
+        return arr
+    return torch.cat([arr[:n_gas][order], arr[n_gas:]])
+
+
 def permute_gas(parts: Particles, order) -> Particles:
     """Physically reorder the gas block (peano.c:85-126, as a gather)."""
     n_gas = parts.n_gas
 
     def perm(arr):
-        if arr.shape[0] == 0:
-            return arr
-        return torch.cat([arr[:n_gas][order], arr[n_gas:]])
+        return permute_rows(arr, order, n_gas)
 
     return parts.replace(
         pos=perm(parts.pos), vel=perm(parts.vel), pid=perm(parts.pid),
@@ -477,7 +483,8 @@ def _solve_classed(state, h0_b, cfg, mpart, boxsize):
             pos_t, valid_t, rows, pos_t[idc], h0_b[idc], cap_b[idc],
             float(mpart), float(boxsize), kernel=cfg.sph_kernel,
             desnngb=cfg.desnngb, n_sweeps=CLASSED_SWEEPS,
-            sb_mode=sb_mode, packed=packed)[:5]
+            sb_mode=sb_mode, cluster=padded_cluster(rows, sb_mode),
+            packed=packed)[:5]
 
     return run_classed(state,
                        lambda ids, rows, cnt, m: solve(ids, rows, False),

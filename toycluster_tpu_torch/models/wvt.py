@@ -53,9 +53,18 @@ count-class engine's sticky list, superblock and far-tail widths and its
 quantized class and far-tail sizes (``sph.build_neighbours_blocks``,
 ``sph.classed_selections``, one memo a relaxation) let a build find it,
 far-tail states included, which are rebuilt at every iteration.
-Iterations run eagerly above PROGRAM_MAX_GAS gas (derived from the
-card's memory) and with ``ITER_PROGRAMS = False``.  On the CPU a program
-runs the body on its static buffers, without a graph.
+Iterations run eagerly above the engine's PROGRAM_MAX_GAS gas (derived
+from the card's memory) and with ``ITER_PROGRAMS = False``.  On the CPU a
+program runs the body on its static buffers, without a graph.
+
+The large-run memory path, as in the JAX loop.  The loop reads only the
+gas positions and hsml of the particle set.  From OFFLOAD_N gas
+particles on (TOYCLUSTER_WVT_OFFLOAD_N, the JAX package's variable), a
+particle set handed over in a one-element list (the holder protocol)
+is parked (``_Parked``): ids and halo membership go to host memory, the
+DM half of the positions stays on the device, and every other buffer of
+the set is freed; the set is rebuilt from those and the loop's results
+at the end, with the same bits as without the offload.
 """
 
 from __future__ import annotations
@@ -120,14 +129,21 @@ SCALARS = ("err_max", "err_mean", "n_sat", "dmax_rel", "p999_rel",
 # with True (the default) the iterations run through iteration programs
 # (module docstring); with False every iteration runs eagerly
 ITER_PROGRAMS = True
-# above this many gas particles every iteration runs eagerly.  Derived
-# for one 80 GiB H100 (chip_smoke.py steps 6 and 11): the programs'
-# memory (``wvt_graph``'s ``added_gib``: static buffers and graph pool)
-# measured 176-355 B a gas particle at 5e5 and 5e6 gas on both engines,
-# the eager peak 357.5 B at 5e7 gas (stream engine); (355 + 357.5) B x
-# 6e7 = 39.8 GiB, under half of the card, which leaves the rest to the
-# count-class engine's larger eager peak and the allocator's cache
-PROGRAM_MAX_GAS = 60_000_000
+# above this many gas particles every iteration of an engine runs
+# eagerly: half of one 80 GiB card over the engine's own bytes a gas
+# particle, the programs' (static buffers and graph pool) plus the eager
+# peak, each measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+# 700.00 W.  Stream (steps 6 and 11): the programs added 176-355 B at
+# 5e5 and 5e6 gas, the eager peak was 357.5 B at 5e7 gas; (355 + 357.5)
+# B x 6e7 = 39.8 GiB.  Count-class (two runs): the programs reserved
+# 520.9-528.1 B more than an eager run at 5e6 gas (step 11, config 4 at
+# 1e7, after empty_cache and reset_peak_memory_stats), the eager peak
+# reserved 463.1-470.9 B at 5e7 gas (step 6, A2); (528.1 + 470.9) B x
+# 4e7 = 37.2 GiB, and 5e7 gas would need 46.5 GiB
+PROGRAM_MAX_GAS = {"stream": 60_000_000, "classed": 40_000_000}
+# at this many gas particles or more the loop keeps on the device only
+# what it reads (``_Parked``): the JAX package's switch and default
+OFFLOAD_N = 20_000_000
 # live iteration programs of a loop: the current key and the one before
 PROGRAMS_LIVE = 2
 # the kernel launches that program replays made, by record name: the
@@ -346,14 +362,15 @@ class _Loop:
 
         def two_pass(ids, rows, sb_mode):
             idc = torch.clamp(ids, min=0).long()
+            cluster = _sp.padded_cluster(rows, sb_mode)
             res = solve_density(pos_t, valid_t, rows, pos_t[idc], h0_b[idc],
                                 cap_b[idc], self.mpart, self.boxsize,
-                                sb_mode=sb_mode, packed=packed(None),
-                                **kw)[:5]
+                                sb_mode=sb_mode, cluster=cluster,
+                                packed=packed(None), **kw)[:5]
             return res + (wvt_displacement(
                 pos_t, valid_t, h_b3, rows, pos_t[idc], hm_b[idc], 1.0,
                 self.boxsize, kernel=self.kernel, sb_mode=sb_mode,
-                packed=packed(h_b3)),)
+                cluster=cluster, packed=packed(h_b3)),)
 
         def tail(ids, sb_rows, sb_cnt):
             n0 = [k.launches for k in _SB_KERNELS]
@@ -462,10 +479,10 @@ class _Loop:
 
     def eager_rule(self):
         """Why an iteration runs eagerly, or None: "off" (ITER_PROGRAMS),
-        "large" (more than PROGRAM_MAX_GAS gas)."""
+        "large" (more gas than the engine's PROGRAM_MAX_GAS)."""
         if not ITER_PROGRAMS:
             return "off"
-        if self.n_gas > PROGRAM_MAX_GAS:
+        if self.n_gas > PROGRAM_MAX_GAS[self.engine]:
             return "large"
         return None
 
@@ -696,6 +713,66 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def offload_enabled(n_gas):
+    """The JAX package's switch: the particle set is parked from
+    TOYCLUSTER_WVT_OFFLOAD_N gas particles on (default OFFLOAD_N)."""
+    return n_gas >= int(os.environ.get("TOYCLUSTER_WVT_OFFLOAD_N",
+                                       str(OFFLOAD_N)))
+
+
+def _to_host(x):
+    """A host copy of ``x``, in pinned memory when ``x`` is on a CUDA
+    device (so the copy back is one transfer)."""
+    if not x.is_cuda:
+        return x.clone()
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x)
+    return out
+
+
+class _Parked:
+    """A particle set while the WVT loop runs with the offload (the JAX
+    loop's, toycluster_tpu/models/wvt.py:698-717): ``pid`` and ``halo``
+    in host memory, the DM half of ``pos`` on the device, ``vel``,
+    ``bfld`` and ``apot`` as they came (0 rows at this stage; ``restore``
+    permutes any gas rows they have).  The gas half of ``pos`` and the
+    gas fields are not kept: the loop holds its own gas positions and
+    hsml, and ``restore`` makes the rest anew."""
+
+    def __init__(self, parts: Particles):
+        n_gas = parts.n_gas
+        self.pid = _to_host(parts.pid)
+        self.halo = _to_host(parts.halo)
+        self.pos_dm = parts.pos[n_gas:].clone()
+        self.vel, self.bfld, self.apot = parts.vel, parts.bfld, parts.apot
+        self.host_gib = (self.pid.nbytes + self.halo.nbytes) / 2**30
+
+    def restore(self, order_acc, pos_gas, rho, hsml, vf, rho_model):
+        """The particle set after the loop (JAX: :1096-1113): the gas
+        permutation ``order_acc`` applied to ``pid`` and ``halo`` on the
+        host, the loop's gas positions before the DM half, and the
+        loop's fields (zeros where the loop wrote none, and for ``u``:
+        the temperature stage writes it first)."""
+        n_gas, dev = pos_gas.shape[0], pos_gas.device
+        order = order_acc.cpu()
+        for x in (self.pid, self.halo):
+            x[:n_gas] = x[:n_gas][order]
+        zeros = torch.zeros((n_gas,), dtype=torch.float32, device=dev)
+
+        def field(x):
+            return zeros if x is None else x
+
+        return Particles(
+            pos=torch.cat([pos_gas, self.pos_dm]),
+            vel=sph_mod.permute_rows(self.vel, order_acc, n_gas),
+            pid=self.pid.to(dev, non_blocking=True),
+            halo=self.halo.to(dev, non_blocking=True), u=zeros,
+            rho=field(rho), hsml=field(hsml), var_hsml_fac=field(vf),
+            rho_model=field(rho_model),
+            bfld=sph_mod.permute_rows(self.bfld, order_acc, n_gas),
+            apot=sph_mod.permute_rows(self.apot, order_acc, n_gas))
+
+
 def _load_checkpoint(path, n_gas, device):
     """(pos_gas, step, err_last, err_diff_last, it) of a checkpoint;
     pos_gas in the original particle order."""
@@ -723,7 +800,7 @@ def _save_checkpoint(path, pos_gas, order_acc, step, err_last,
 
 
 def regularise_sph_particles(scene: Scene, ha: HaloArrays,
-                             parts: Particles, *, log=stage_log,
+                             parts: Particles | list, *, log=stage_log,
                              engine: str = "stream",
                              checkpoint_path: str | None = None,
                              checkpoint_every: int = 16):
@@ -753,9 +830,23 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     list width, the count classes' and the far tail's shapes (``classes``,
     ``tail``: the JAX loop's ``class_shape`` and ``tail_shape``) and the
     far-tail rows; ``wvt_build`` and ``wvt_refresh`` carry the device
-    memory (``mem_gib``, ``peak_gib``) on a CUDA device."""
+    memory (``mem_gib``, ``peak_gib``) on a CUDA device.
+
+    ``parts`` may come as a one-element list, the JAX package's holder
+    protocol: the loop pops it, so where the caller keeps no reference
+    of its own, a run of ``offload_enabled`` size frees the buffers the
+    loop never reads (``_Parked``; logged as ``wvt_offload`` with the
+    seconds, the host GiB and the device memory after, and the rebuild
+    at the end as ``wvt_restore``).  A plain ``parts`` stays alive in
+    the caller, so the loop keeps it and permutes it at the end.
+    ``pipeline.make_ics`` passes a holder; ``pipeline._relax_sharded``
+    and the sharded loop (``parallel.wvt_shard``) take the plain set, as
+    the JAX package's sharded branch does, and have no offload."""
     global last_contract_frac
     sph_mod.check_engine(engine)
+    held = isinstance(parts, list)
+    if held:
+        parts = parts.pop()
     cfg = scene.config
     n_gas = parts.n_gas
     if n_gas == 0:
@@ -783,6 +874,14 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     # permutations of its builds into order_acc, applied once at the end
     pos_gas = parts.pos[:n_gas].clone()
     h_prev = parts.hsml[:n_gas].clone()
+    parked = None
+    if held and offload_enabled(n_gas):
+        t_off = time.perf_counter()
+        parked = _Parked(parts)
+        parts = None
+        _sync(dev)
+        log("wvt_offload", n_gas=n_gas, seconds=time.perf_counter() - t_off,
+            host_gib=parked.host_gib, **stage_memory(dev))
     # model density at each particle's previous position (_warm_ratio);
     # 0 = no prediction
     rhom_prev = torch.zeros((n_gas,), dtype=torch.float32, device=dev)
@@ -1002,11 +1101,19 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
             log("wvt_checkpoint", it=it, seconds=time.perf_counter() - t_ck)
 
     state = None
-    parts = sph_mod.permute_gas(parts, order_acc)
-    parts = parts.replace(pos=torch.cat([pos_gas, parts.pos[n_gas:]]))
-    if rho_l is not None:
-        parts = parts.replace(rho=rho_l, hsml=hsml_l, var_hsml_fac=vf_l,
-                              rho_model=rho_model_l)
+    if parked is not None:
+        t_back = time.perf_counter()
+        parts = parked.restore(order_acc, pos_gas, rho_l, hsml_l, vf_l,
+                               rho_model_l)
+        parked = None
+        _sync(dev)
+        log("wvt_restore", seconds=time.perf_counter() - t_back)
+    else:
+        parts = sph_mod.permute_gas(parts, order_acc)
+        parts = parts.replace(pos=torch.cat([pos_gas, parts.pos[n_gas:]]))
+        if rho_l is not None:
+            parts = parts.replace(rho=rho_l, hsml=hsml_l, var_hsml_fac=vf_l,
+                                  rho_model=rho_model_l)
     _sync(dev)
     dt = time.perf_counter() - t_start
     L.programs.clear()

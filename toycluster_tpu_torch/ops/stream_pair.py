@@ -418,6 +418,19 @@ def _cluster_size(n_rows, n_entries, cluster):
     return cluster
 
 
+def padded_cluster(cand, sb_mode):
+    """CTAs a row is split over in a call on padded rows: ``cand`` (S,
+    M) lists whose S is a size of ``sph.quantize_size``'s grid, past the
+    real rows padding rows that exit at once.  The grid gives a size S
+    to S/4 < n <= S real rows, so the split is ``_cluster_size``'s for
+    S/2 rows, the middle of that range on a log scale: a function of the
+    shape alone (an iteration program's replay and an eager call split
+    alike), which the padding does not shrink below the split of S/4
+    real rows."""
+    S, M = cand.shape
+    return _cluster_size(max(S // 2, 1), M * SUPER if sb_mode else M, None)
+
+
 def _row_tables(cand, xi, cap, h_i, r_pair, boxsize, hoist, cnt=None):
     """What the list-walk kernels read per row: the receiver chunks
     (S, 8, 8) (largest cap in column 6 for the density, largest h_i in

@@ -126,8 +126,13 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
                                        wvt_checkpoint)
                 wvt_fresh = False
             else:
+                # the holder protocol (JAX: toycluster_tpu/pipeline.py:
+                # 108-116): this frame drops its reference, so that a
+                # large run's loop frees the buffers it never reads
+                holder = [parts]
+                del parts
                 parts, wvt_fresh = wvt.regularise_sph_particles(
-                    scene, ha, parts, log=log, engine=engine,
+                    scene, ha, holder, log=log, engine=engine,
                     checkpoint_path=wvt_checkpoint)
         if profile_dir:
             os.makedirs(profile_dir, exist_ok=True)
