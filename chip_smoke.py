@@ -66,8 +66,10 @@ parent).
 6. Two large runs of the config-4 preset (``run_configs.PRESETS[4]``),
    counted without recording any kernel's inputs, each printing its
    stage times with the allocator's mem_gib / peak_gib, each WVT build's
-   time and width, the wall between WVT iterations and its phase's wall
-   time.  A: at config 5's size,
+   and list refresh's time and width, the widths its candidate search
+   started and ended at, the sweeps it ran and the sweep programs it
+   replayed and made, the wall between WVT iterations and its phase's
+   wall time.  A: at config 5's size,
    Ntotal 1e8 (5e7 gas), on the stream engine through
    ``make_ics(check=True, wvt_checkpoint=...)``, with the checks of step
    5, and the checkpoint must hold the last iteration of the form 16 k -
@@ -75,9 +77,12 @@ parent).
    events around the wrapper), the checkpoint saves' times and the peak
    device memory per gas particle, the iteration programs made and
    replayed and the WVT loop's seconds; at 5e7 gas, under the stream
-   engine's ``wvt.PROGRAM_MAX_GAS``, the loop must make programs and run
-   no iteration eagerly, and it must park the particle set
-   (``wvt_offload``, ``wvt_restore``).  Then A's offload gate: the
+   engine's ``wvt.PROGRAM_MAX_GAS``, the loop must make programs, replay
+   sweep programs and run no iteration eagerly, no build or list refresh
+   may grow its search from below a width an earlier one reached (the
+   sticky search width), and it must park the particle set
+   (``wvt_offload``, ``wvt_restore``); A keeps the inputs of its first
+   superblock sweep for step 12.  Then A's offload gate: the
    particle set make_ics hands the loop on A's scene, relaxed twice from
    a host copy to wvt_max_iter 1, with the offload off and on, must give
    the same pos, rho, hsml, pid and halo to the bit, and the device
@@ -192,7 +197,12 @@ parent).
    launches of every kernel record, the far-tail records included (a
    replay adds the launches its program captured); with the programs on
    every run replays one and no iteration runs eagerly (the first
-   iteration of a key makes the program), the classed preset 1 and 1e6
+   iteration of a key makes the program); the builds and list refreshes
+   must search the same widths and run the same sweeps on and off, and
+   with the programs on each of their sweep programs (and a refresh's
+   box pass) must replay or be made by the first call of its key, and a
+   run with more than one build or refresh must replay one; the
+   classed preset 1 and 1e6
    par make at most 3 programs and replay at least 8; none is made
    without them; in every traced run the device ops of each kernel
    number its launches (the kernels inside a replayed graph count in the
@@ -204,6 +214,14 @@ parent).
    particle that the programs added to the peaks (the measurement
    behind ``wvt.PROGRAM_MAX_GAS``).  Step 5's instrumented second runs
    run with the programs off (no capture may synchronise).
+12. The superblock sweep: on the inputs of phase A's first superblock
+   sweep (its first build's, 5e7 gas, kept in the run), at the recorded
+   width and at the width cap ``sph.SB_WIDTH_CAP``, the top-k sweep and
+   its oracle (the stable sort over every superblock that the top-k
+   replaced, ``blk._find_candidates_super_k_sorted``) must give the same
+   lists, counts and overflow to the bit; prints both times (CUDA
+   events, in turns), their peak memory and, at the recorded width, the
+   time of the sweep with no selection.
 
 Prints the wall time of each phase, the kernel record (with each record's
 M4 numbers of step 9 as ``m4_*`` keys) and the card line before the last
@@ -1460,12 +1478,18 @@ def run_large(torch, sp, cp, tmp, engine):
     must log it and its rebuild.  The loop must make programs and run no
     iteration eagerly under the engine's ``wvt.PROGRAM_MAX_GAS``, and run
     every iteration eagerly by the rule "large" above it.  Prints each
-    stage's time and device memory, each build's time, widths, shapes and
-    memory, each kernel record's device times, the checkpoint saves'
-    times, and the peak device memory allocated and reserved, also a gas
-    particle.  Returns the run's stage-log records."""
+    stage's time and device memory, each build's and list refresh's time,
+    widths, shapes, searched widths, sweeps, sweep programs replayed and
+    made, and memory, each kernel record's device times, the checkpoint
+    saves' times, the programs' capture seconds and memory, and the peak
+    device memory allocated and reserved, also a gas particle.  On the
+    stream engine no build or refresh may grow its search from below a
+    width an earlier one of the relaxation reached (the sticky search
+    width).  Returns the run's stage-log records and the inputs of its
+    first superblock sweep (``first_sweep``: the first build's)."""
     import shutil
     from toycluster_tpu_torch.models import wvt
+    from toycluster_tpu_torch.ops import blocks as blk
     from toycluster_tpu_torch.pipeline import make_ics
     ntotal = LARGE_NTOTAL
     tag = f"config-4 {ntotal:.0e} {engine}"
@@ -1478,10 +1502,17 @@ def run_large(torch, sp, cp, tmp, engine):
     torch.cuda.empty_cache()
     mem0 = torch.cuda.memory_allocated()
     reserved0 = torch.cuda.memory_reserved()
-    (scene, parts), launches, totals, dev_ms, wall, t0 = counted(
-        torch, sp, cp, lambda: make_ics(
-            cfg, device="cuda", engine=engine, check=True,
-            wvt_checkpoint=None if ck is None else str(ck)), record=False)
+    sweep = blk._find_candidates_super_k
+    first = {}
+    blk._find_candidates_super_k = first_sweep(torch, sweep, first)
+    try:
+        (scene, parts), launches, totals, dev_ms, wall, t0 = counted(
+            torch, sp, cp, lambda: make_ics(
+                cfg, device="cuda", engine=engine, check=True,
+                wvt_checkpoint=None if ck is None else str(ck)),
+            record=False)
+    finally:
+        blk._find_candidates_super_k = sweep
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
     say(f"[{tag}] wall {wall:.3f} s; launches {launches}")
@@ -1497,34 +1528,48 @@ def run_large(torch, sp, cp, tmp, engine):
              f"records {restore}")
     builds = [r for r in recs if r["stage"] in ("wvt_build", "wvt_refresh")]
     rows = [(r["stage"], r["it"], round(r["seconds"], 4), r["max_cand"],
+             r["searched"], r["sweeps"], r["replayed"], r["captured"],
              r.get("tail_rows"), round(r["mem_gib"], 4),
              round(r["peak_gib"], 4)) for r in builds]
-    say(f"[{tag}] builds and list refreshes (stage, it, s, width, "
-        f"far-tail rows, mem_gib, peak_gib): {rows}")
+    say(f"[{tag}] builds and list refreshes (stage, it, s, width, searched "
+        f"(first, last), sweeps, sweep programs replayed, made, far-tail "
+        f"rows, mem_gib, peak_gib): {rows}")
+    check_search_widths(tag, engine, builds)
     done = [r for r in recs if r["stage"] == "wvt_done"][0]
     eager = [r["rule"] for r in recs if r["stage"] == "wvt_eager"]
-    graphs = [r for r in recs if r["stage"] == "wvt_graph"]
+    all_graphs = [r for r in recs if r["stage"] == "wvt_graph"]
+    graphs = [r for r in all_graphs if r["kind"] == "iteration"]
+    sweep_graphs = [r for r in all_graphs if r["kind"] == "sweep"]
+    say(f"[{tag}] sweep programs made {len(sweep_graphs)} (key, capture "
+        f"s, added GiB): "
+        f"{[(r['key'], round(r['seconds'], 4), round(r['added_gib'], 4))
+            for r in sweep_graphs]}")
     limit = wvt.PROGRAM_MAX_GAS[engine]
     say(f"[{tag}] WVT loop {done['seconds']:.6f} s, "
         f"{done['particle_updates_per_s']:.6g} updates/s; builds "
         f"{len([r for r in builds if r['stage'] == 'wvt_build'])} in "
         f"{sum(r['seconds'] for r in builds if r['stage'] == 'wvt_build'):.3f}"
+        f" s, list refreshes "
+        f"{len([r for r in builds if r['stage'] == 'wvt_refresh'])} in "
+        f"{sum(r['seconds'] for r in builds if r['stage'] == 'wvt_refresh'):.3f}"
         f" s; iteration programs made {done['captured']} (capture s "
         f"{[round(r['seconds'], 4) for r in graphs]}, added GiB "
         f"{[round(r.get('added_gib', 0.0), 4) for r in graphs]}), replayed "
         f"{done['replayed']}, eager {done['eager']} {eager}; "
         f"PROGRAM_MAX_GAS[{engine!r}] {limit}")
     if n_gas <= limit and (eager or not done["captured"]
-                           or not done["replayed"]):
+                           or not done["replayed"] or not sweep_graphs
+                           or not sum(r["replayed"] for r in builds)):
         fail(f"{tag}: {n_gas} gas under PROGRAM_MAX_GAS, yet programs made "
              f"{done['captured']}, replayed {done['replayed']}, eager rules "
-             f"{eager}")
+             f"{eager}, sweep programs made {len(sweep_graphs)}, replayed "
+             f"{sum(r['replayed'] for r in builds)}")
     # an eager loop runs each iteration, retry and dropped queued
     # iteration through the body
     calls = (done["iterations"] + done["dropped"]
              + len([r for r in recs if r["stage"] == "wvt_retry"]))
     if n_gas > limit and (eager != ["large"] or done["captured"]
-                          or done["eager"] != calls):
+                          or done["eager"] != calls or sweep_graphs):
         fail(f"{tag}: {n_gas} gas over PROGRAM_MAX_GAS, yet programs made "
              f"{done['captured']}, eager iterations {done['eager']}, eager "
              f"rules {eager}")
@@ -1549,7 +1594,52 @@ def run_large(torch, sp, cp, tmp, engine):
     del parts
     check_snapshot(out, ntotal)
     out.unlink()
-    return recs
+    return recs, first.get("args")
+
+
+def first_sweep(torch, sweep, first):
+    """``blk._find_candidates_super_k`` that keeps the inputs of its first
+    call in ``first["args"]`` (the box fields of its block index, the
+    rows, radii, box size and list width), copied, then calls
+    ``sweep``."""
+    from toycluster_tpu_torch.ops import blocks as blk
+
+    def call(bi, rec_ids, radius, radius_sym, boxsize, max_cand, *rest):
+        if "args" not in first:
+            none = bi.bb_lo.new_empty((0,))
+            first["args"] = (
+                blk.BlockIndex(order=none, pos=none, valid=none,
+                               bb_lo=bi.bb_lo.clone(),
+                               bb_hi=bi.bb_hi.clone(),
+                               sb_lo=bi.sb_lo.clone(),
+                               sb_hi=bi.sb_hi.clone()),
+                rec_ids.clone(), radius.clone(), radius_sym.clone(),
+                boxsize, max_cand)
+        return sweep(bi, rec_ids, radius, radius_sym, boxsize, max_cand,
+                     *rest)
+    return call
+
+
+def check_search_widths(tag, engine, builds):
+    """The sticky search width of a stream relaxation: no build or list
+    refresh (``wvt_build`` / ``wvt_refresh`` records, in order) grows its
+    search from a first width below the last width an earlier one
+    reached, so none sweeps twice at a width the relaxation reached
+    before.  Prints the calls that grew."""
+    if engine != "stream":
+        return
+    reached, grew = 0, []
+    for r in builds:
+        first, last = r["searched"]
+        if first < last:
+            grew.append((r["stage"], r["it"], r["searched"], r["sweeps"]))
+            if first < reached:
+                fail(f"{tag}: {r['stage']} at it = {r['it']} searched "
+                     f"{r['searched']} after an earlier call reached "
+                     f"{reached}")
+        reached = max(reached, last)
+    say(f"[{tag}] searches that grew (stage, it, searched, sweeps): {grew}; "
+        f"none grew from below a width reached before")
 
 
 class _Handed(Exception):
@@ -2644,9 +2734,16 @@ def program_run(torch, sp, cp, tmp, engine, what, on):
     return dict(
         captured=done["captured"], replayed=done["replayed"],
         eager=done["eager"], iterations=done["iterations"],
-        capture_s=sum(r["seconds"] for r in graphs),
+        capture_s=sum(r["seconds"] for r in graphs
+                      if r["kind"] == "iteration"),
+        sweep_capture_s=sum(r["seconds"] for r in graphs
+                            if r["kind"] == "sweep"),
         added_gib=sum(r.get("added_gib", 0.0) for r in graphs),
-        keys=[r["key"] for r in graphs],
+        keys=[r["key"] for r in graphs if r["kind"] == "iteration"],
+        sweep_keys=[r["key"] for r in graphs if r["kind"] == "sweep"],
+        builds=[{k: r[k] for k in ("stage", "it", "max_cand", "searched",
+                                   "sweeps", "replayed", "captured")}
+                for r in recs if r["stage"] in ("wvt_build", "wvt_refresh")],
         loop_s=done["seconds"],
         updates_per_s=done["particle_updates_per_s"],
         wvt_wall=tr["wvt_wall"], wvt_busy=tr["wvt_busy"],
@@ -2660,11 +2757,16 @@ def program_run(torch, sp, cp, tmp, engine, what, on):
 
 def run_programs(torch, sp, cp, tmp):
     """Step 11: PROGRAM_RUNS with the WVT iteration programs on and off
-    (``program_run``).  Each pair must give the same wvt records and the
+    (``program_run``), the sweep programs of the builds and list
+    refreshes with them.  Each pair must give the same wvt records, the
+    same builds and refreshes (widths, searched widths, sweeps) and the
     same relaxed gas (positions, rho, hsml; ``torch.equal``) and the same
     launches of every kernel record; with programs off none is made or
     replayed; with them on every run replays one and runs no iteration
-    eagerly, and the PROGRAM_SHAPES runs make few programs and replay
+    eagerly, every program a build or refresh runs (its sweeps and a
+    refresh's box pass) replays one or makes one (the first call of its
+    key), a run with more than one build or refresh replays a sweep
+    program, and the PROGRAM_SHAPES runs make few programs and replay
     them often."""
     rows = {}
     for tag, engine, what in PROGRAM_RUNS:
@@ -2693,6 +2795,7 @@ def run_programs(torch, sp, cp, tmp):
         if not on["replayed"] > 0 or on["eager"]:
             fail(f"{tag}: programs on replayed {on['replayed']}, ran "
                  f"{on['eager']} iterations eagerly")
+        check_sweep_programs(tag, on["builds"], off["builds"])
         names, most, least = PROGRAM_SHAPES
         if tag in names and not (on["captured"] <= most
                                  and on["replayed"] >= least):
@@ -2704,13 +2807,14 @@ def run_programs(torch, sp, cp, tmp):
         on["gas"] = off["gas"] = None
     say("step 11 (WVT iteration programs; idle shares from the traced "
         "second run): run, programs, iterations, made, replayed, eager, "
-        "capture s, loop s, updates/s, traced WVT span s, its device busy "
-        "s, idle share of the WVT span, peak GiB allocated, reserved, "
-        "added by the programs")
+        "capture s, sweep programs made, their capture s, loop s, "
+        "updates/s, traced WVT span s, its device busy s, idle share of "
+        "the WVT span, peak GiB allocated, reserved, added by the programs")
     for (tag, on), r in rows.items():
         say(f"  {tag} | {'on' if on else 'off'} | {r['iterations']} | "
             f"{r['captured']} | {r['replayed']} | {r['eager']} | "
-            f"{r['capture_s']:.6f} | {r['loop_s']:.6f} | "
+            f"{r['capture_s']:.6f} | {len(r['sweep_keys'])} | "
+            f"{r['sweep_capture_s']:.6f} | {r['loop_s']:.6f} | "
             f"{r['updates_per_s']:.6g} | {r['wvt_wall']:.6f} | "
             f"{r['wvt_busy']:.6f} | {r['wvt_idle']:.6f} | "
             f"{r['peak_gib']:.4f} | {r['peak_reserved_gib']:.4f} | "
@@ -2724,6 +2828,111 @@ def run_programs(torch, sp, cp, tmp):
             f"{(on['peak_gib'] - off['peak_gib']) * per:.1f} | "
             f"{(on['peak_reserved_gib'] - off['peak_reserved_gib']) * per:.1f}"
             f" | {on['added_gib'] * per:.1f}")
+
+
+# ------------------------------------------- step 12: the superblock sweep
+
+# CUDA-event timings of each sweep at each width, in turns: top-k,
+# oracle, oracle, top-k
+SWEEP_REPS = 2
+
+
+def run_sweep_check(torch, first):
+    """Step 12: the superblock sweep on the inputs of phase A's first
+    superblock sweep (``first_sweep``; 5e7 gas), at the recorded width
+    and at ``sph.SB_WIDTH_CAP``: the top-k sweep
+    (``blk._find_candidates_super_k``) and its oracle, the stable sort
+    over every superblock (``blk._find_candidates_super_k_sorted``),
+    must give the same lists, counts and overflow to the bit.  Prints
+    each one's time (CUDA events, SWEEP_REPS calls each, in turns) and
+    its peak device memory over what the inputs hold, and at the
+    recorded width the time of the same sweep with no selection (its box
+    distances, ranges and counts alone: what the top-k leaves)."""
+    from toycluster_tpu_torch.models import sph
+    from toycluster_tpu_torch.ops import blocks as blk
+    if first is None:
+        fail("phase A recorded no superblock sweep")
+    bi, rec_ids, radius, radius_sym, boxsize, width = first
+    say(f"step 12: receiver rows {rec_ids.shape[0]}, superblocks "
+        f"{bi.sb_lo.shape[0]}, recorded width {width}")
+    fns = {"top-k": blk._find_candidates_super_k,
+           "oracle": blk._find_candidates_super_k_sorted}
+    for w in (width, sph.SB_WIDTH_CAP):
+        args = (bi, rec_ids, radius, radius_sym, boxsize, w)
+        ms, peak, out = {n: [] for n in fns}, {}, {}
+        for name in ("top-k", "oracle", "oracle", "top-k") * (
+                SWEEP_REPS // 2):
+            out.pop(name, None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+            ev[0].record()
+            out[name] = fns[name](*args)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[name].append(ev[0].elapsed_time(ev[1]))
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        got, ref = out["top-k"], out["oracle"]
+        if not (torch.equal(got.idx, ref.idx)
+                and torch.equal(got.count, ref.count)
+                and got.overflow == ref.overflow):
+            bad = int((got.idx != ref.idx).any(dim=1).sum())
+            fail(f"step 12: the top-k sweep differs from its oracle at "
+                 f"width {w}: {bad} rows, overflow {got.overflow} vs "
+                 f"{ref.overflow}")
+        say(f"[step 12, width {w}] top-k and oracle lists, counts and "
+            f"overflow ({got.overflow}) the same to the bit; ms a sweep "
+            f"(CUDA events) top-k {ms['top-k']}, oracle {ms['oracle']}; "
+            f"mean {sum(ms['top-k']) / len(ms['top-k']):.3f} vs "
+            f"{sum(ms['oracle']) / len(ms['oracle']):.3f}; peak GiB over "
+            f"the inputs top-k {peak['top-k']:.4f}, oracle "
+            f"{peak['oracle']:.4f}")
+        del got, ref, out
+        if w == width:
+            def unselected(d2, hit, k):
+                return torch.full((d2.shape[0], k), -1, dtype=torch.int64,
+                                  device=d2.device)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+            torch.cuda.synchronize()
+            ev[0].record()
+            blk._super_sweep(*blk._super_args(bi, rec_ids, radius,
+                                              radius_sym),
+                             boxsize=boxsize, max_cand=w, select=unselected)
+            ev[1].record()
+            torch.cuda.synchronize()
+            say(f"[step 12, width {w}] the sweep with no selection (box "
+                f"distances, ranges, counts): "
+                f"{ev[0].elapsed_time(ev[1]):.3f} ms")
+
+
+def check_sweep_programs(tag, on, off):
+    """Step 11's gates on the builds and list refreshes of a run with the
+    programs on and off (``program_run``'s ``builds``): the same widths,
+    searched widths and sweeps; off, no sweep program replayed or made;
+    on, each program a call ran (its sweeps and a refresh's box pass)
+    replayed or made (the first call of its key), and a sweep program
+    replayed where the run has more than one build or refresh."""
+    same = ("stage", "it", "max_cand", "searched", "sweeps")
+    if [[b[k] for k in same] for b in on] != [[b[k] for k in same]
+                                              for b in off]:
+        fail(f"{tag}: builds and refreshes differ with programs on and "
+             f"off:\n{on}\n{off}")
+    if any(b["replayed"] or b["captured"] for b in off):
+        fail(f"{tag}: programs off replayed or made a sweep program: {off}")
+    for b in on:
+        if b["replayed"] + b["captured"] != (
+                b["sweeps"] + (b["stage"] == "wvt_refresh")):
+            fail(f"{tag}: {b['stage']} at it = {b['it']} ran "
+                 f"{b['sweeps']} sweeps, replayed {b['replayed']} and made "
+                 f"{b['captured']} programs")
+    if len(on) > 1 and not sum(b["replayed"] for b in on):
+        fail(f"{tag}: {len(on)} builds and refreshes, no sweep program "
+             f"replayed")
+    say(f"[{tag}] builds and refreshes (stage, it, searched, sweeps, "
+        f"replayed, made) with programs: "
+        f"{[(b['stage'], b['it'], b['searched'], b['sweeps'], b['replayed'],
+             b['captured']) for b in on]}")
 
 
 def main():
@@ -2790,7 +2999,7 @@ def main():
             single_card_errs[engine, ntotal] = run_substructure(
                 torch, sp, cp, tmp, engine, ntotal, slow)
             t0 = phase(f"config-4 {ntotal:.0e}, engine={engine}", t0)
-        run_large(torch, sp, cp, tmp, "stream")
+        _, first = run_large(torch, sp, cp, tmp, "stream")
         t0 = phase(f"A: config-4 {LARGE_NTOTAL:.0e}, engine=stream", t0)
         run_offload_gate(torch)
         t0 = phase(f"A: the offload gate at {LARGE_NTOTAL:.0e}", t0)
@@ -2809,6 +3018,9 @@ def main():
         t0 = phase("10: speculative dispatch", t10)
         run_programs(torch, sp, cp, tmp)
         t0 = phase("11: iteration programs", t0)
+        run_sweep_check(torch, first)
+        del first
+        t0 = phase("12: the superblock sweep", t0)
     parent = None
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()

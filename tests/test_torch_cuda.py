@@ -1013,3 +1013,81 @@ def test_offload_gives_the_same_bits_on_cuda(dev, monkeypatch, engine):
     for k in ("pos", "vel", "pid", "halo", "u", "rho", "hsml",
               "var_hsml_fac", "rho_model", "bfld"):
         assert torch.equal(getattr(on, k), getattr(off, k)), k
+
+
+def _sweep_inputs(dev, n=500_000):
+    """The 1e6 par's sweep shapes on a cusp of ``n`` gas points (3,907
+    blocks, 489 superblocks): the block index, per-block radii (3 h0)
+    and the symmetric radii (0.7 of them)."""
+    from toycluster_tpu_torch.ops import blocks as blk
+    pos, h0 = (torch.as_tensor(a, device=dev)
+               for a in cusp.cusp_points(n, seed=3))
+    bi = blk.build_blocks(pos, cusp.BOX)
+    hs = blk.pad_rows(h0[bi.order], bi.n_padded) * 3.0
+    rad = hs.reshape(bi.n_blocks, blk.BLOCK).amax(dim=1)
+    return bi, rad, rad * 0.7
+
+
+@pytest.mark.parametrize("rows,width", [("all", 192), ("all", 256),
+                                        ("all", "ns"), ("tail", 1024)])
+def test_topk_sweep_equals_oracle_at_1e6_shapes(dev, rows, width):
+    """The top-k superblock sweep against its oracle (the stable sort over
+    every superblock) on the card at the 1e6 par's shapes: every row at
+    the first search width, the probe width and k = ns, and 244 far-tail
+    rows (108 real, the rest -1) at the far tail's width 1024 (k = ns):
+    lists, counts and overflow to the bit."""
+    from toycluster_tpu_torch.ops import blocks as blk
+    bi, rad, sym = _sweep_inputs(dev)
+    nb, ns = bi.n_blocks, bi.sb_lo.shape[0]
+    assert (nb, ns) == (3907, 489)
+    ids = torch.arange(nb, dtype=torch.int32, device=dev)
+    if rows == "tail":
+        ids = torch.cat([ids[-108:], ids.new_full((136,), -1)])
+    width = ns if width == "ns" else width
+    args = (bi, ids, rad, sym, cusp.BOX, width)
+    got = blk._find_candidates_super_k(*args)
+    ref = blk._find_candidates_super_k_sorted(*args)
+    assert torch.equal(got.idx, ref.idx)
+    assert torch.equal(got.count, ref.count)
+    assert got.overflow == ref.overflow
+
+
+def test_replayed_sweeps_equal_eager_ones(dev):
+    """``blk.Sweeps`` with programs on the card: a two-pass superblock
+    search (its probe and its padded second pass), a block-granular
+    search and a refresh's box pass, each called at two radii or
+    positions and again at the first: the calls after a key's first run
+    replay its CUDA graph (a capture would raise on a host sync inside
+    a sweep), and every call equals the eager one to the bit."""
+    from functools import partial
+
+    from toycluster_tpu_torch.models import sph
+    from toycluster_tpu_torch.ops import blocks as blk
+    bi, rad, sym = _sweep_inputs(dev)
+    nb = bi.n_blocks
+    sweeps = blk.Sweeps(programs=True)
+    ids = torch.arange(nb, dtype=torch.int32, device=dev)
+    n = bi.order.shape[0]
+
+    def calls(sw, scale, memo):
+        s_rad, s_sym = rad * scale, sym * scale
+        c = blk.find_candidates_super(bi, ids, s_rad, s_sym, cusp.BOX,
+                                      max_cand=384, memo=memo, sweeps=sw)
+        b = blk.find_candidates(bi, s_rad, cusp.BOX, max_cand=512,
+                                radius_sym=s_sym, sweeps=sw)
+        boxes = blk.run_sweep(sw, ("boxes",), partial(
+            sph._refresh_boxes, n_padded=bi.n_padded, boxsize=cusp.BOX),
+            (bi.pos[:n] * scale % cusp.BOX,), sweep=False)
+        return (c.idx, c.count, c.overflow, b.idx, b.count, b.sb_count,
+                b.overflow, b.sb_overflow) + tuple(boxes)
+
+    memo = {}
+    for scale in (1.0, 0.8, 1.0):
+        got = calls(sweeps, scale, memo)
+        ref = calls(None, scale, {})
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+    n_sweeps, replayed, made = sweeps.tally()
+    assert got[2] + 384 > 256   # rows over the probe: a second pass
+    assert len(made) == 4 and all(m["graph"] for m in made)
+    assert replayed == 8 and n_sweeps == 9

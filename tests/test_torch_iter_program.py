@@ -433,7 +433,8 @@ def test_programs_on_and_off_give_the_same_relaxation(memo, monkeypatch,
             _port_scene(wvt_max_iter=3), tha, tparts, engine=engine,
             log=lambda stage, **kw: logs.append((stage, kw)))
         runs[on] = (got, logs)
-    assert loops and all(not loop.programs for loop in loops)
+    assert loops and all(not loop.programs and not loop.sweeps.programs
+                         for loop in loops)
 
     def records(logs, stage):
         return [kw for s, kw in logs if s == stage]
@@ -443,6 +444,11 @@ def test_programs_on_and_off_give_the_same_relaxation(memo, monkeypatch,
     on = records(runs[True][1], "wvt_done")[0]
     off = records(runs[False][1], "wvt_done")[0]
     assert on["captured"] >= 1 and on["replayed"] >= 1 and on["eager"] == 0
-    assert len(records(runs[True][1], "wvt_graph")) == on["captured"]
+    graphs = records(runs[True][1], "wvt_graph")
+    assert len([g for g in graphs if g["kind"] == "iteration"]) \
+        == on["captured"]
+    # the builds' candidate sweeps made programs of their own
+    assert any(g["kind"] == "sweep" for g in graphs)
+    assert not records(runs[False][1], "wvt_graph")
     assert (off["captured"], off["replayed"]) == (0, 0)
     assert off["eager"] == on["captured"] + on["replayed"]

@@ -1,8 +1,13 @@
 """The port's neighbour engine (ops/keys.py, ops/blocks.py,
 models/sph.py structure) against the JAX package's on the same
 positions: identical Hilbert keys and order, identical block and
-superblock boxes, equal candidate SETS (top-k ties may order lists
-differently)."""
+superblock boxes, equal candidate SETS.  Both packages select each row's
+nearest superblocks by a top-k with ties to the lower id, but their
+squared distances may differ in the last bits (XLA fuses and orders the
+float operations otherwise), so two superblocks at one distance in one
+package may come in the other order in the other: the lists are
+compared as sets.  tests/test_torch_sweep.py holds the port's selection
+to its stable-sort oracle bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np

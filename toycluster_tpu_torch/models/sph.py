@@ -21,6 +21,7 @@ chooses by TOYCLUSTER_ENGINE and the backend):
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -154,14 +155,15 @@ def pad_sorted(x, order, n_padded):
 
 
 def build_neighbours(pos_gas, h_cap_gas, boxsize, *, radius_sym_gas=None,
-                     widths=None):
+                     widths=None, sweeps=None):
     """Superblock candidate lists for every receiver block (the JAX
     package's ``_build_neighbours_sb``).  With ``radius_sym_gas`` (per
     particle, the WVT metric search length) the range is the union of
     the density gather range and the symmetric displacement pair range,
     so ONE structure serves a whole WVT iteration (the reference walks
-    one tree twice, wvt_relax.c:66-171).  ``widths``: the sticky list
-    width memo of the caller (``trim_width``)."""
+    one tree twice, wvt_relax.c:66-171).  ``widths``: the width memo of
+    the caller (the sticky search width, ``trim_width`` and the second
+    pass's rows); ``sweeps``: its ``blk.Sweeps``."""
     bi = blk.build_blocks(pos_gas, boxsize)
     h_cap = pad_sorted(h_cap_gas, bi.order, bi.n_padded)
     radius = h_cap.reshape(bi.n_blocks, blk.BLOCK).amax(dim=1)
@@ -171,7 +173,7 @@ def build_neighbours(pos_gas, h_cap_gas, boxsize, *, radius_sym_gas=None,
     else:
         radius_sym = torch.zeros_like(radius)
     return NeighbourState(index=bi, cand=_sb_candidates(
-        bi, radius, radius_sym, boxsize, widths), h_cap=h_cap)
+        bi, radius, radius_sym, boxsize, widths, sweeps), h_cap=h_cap)
 
 
 def trim_width(need, searched, widths, n_rows):
@@ -188,32 +190,50 @@ def trim_width(need, searched, widths, n_rows):
     return w_q
 
 
-def _sb_candidates(bi, radius, radius_sym, boxsize, widths=None):
+# the key of the sticky search width in a relaxation's width memo
+SEARCH_KEY = "search"
+
+
+def _sb_candidates(bi, radius, radius_sym, boxsize, widths=None,
+                   sweeps=None):
     """Superblock candidate search, grown on overflow up to the width
-    cap, then cut: with ``widths`` (the sticky width memo of one WVT
-    relaxation, a dict) to ``trim_width``, so that a list refresh keeps
-    the width of the lists before it and the relaxation's iteration
-    program (models/wvt.py) its shapes; without it to the widest row's
-    count.  Columns past a row's count are -1 padding, which the kernel
-    does not read.  (The JAX package keeps the memo per process; the
-    port's lives as long as the relaxation that holds it.)"""
+    cap, then cut: with ``widths`` (the width memo of one WVT relaxation,
+    a dict) to ``trim_width``, so that a list refresh keeps the width of
+    the lists before it and the relaxation's iteration program
+    (models/wvt.py) its shapes; without it to the widest row's count.
+    Columns past a row's count are -1 padding, which the kernel does not
+    read.  The search starts at SB_WIDTH_START or, with ``widths``, at
+    the width the relaxation's last search left there (``SEARCH_KEY``):
+    the width it grew to, let down towards twice the trimmed width but
+    not below SB_WIDTH_START (the JAX package's ``_LAST_MAX_CAND`` of
+    ``_sb_candidates`` and ``_trim_and_buckets``).  The lists carry the
+    first and last width searched (``searched``).  (The JAX package
+    keeps its memos per process; the port's live as long as the
+    relaxation that holds them.)"""
     ns = bi.sb_lo.shape[0]
     # an even width cap (an odd one at a tiny odd ns would drop every
     # row's farthest superblock); the column past ns is -1 padding
     width_cap = max(2, min(SB_WIDTH_CAP, (ns + 1) & ~1))
-    m_sb = min(SB_WIDTH_START, width_cap)
+    m_sb = first = min(SB_WIDTH_START if widths is None
+                       else widths.get(SEARCH_KEY, SB_WIDTH_START),
+                       width_cap)
     rec = torch.arange(bi.n_blocks, dtype=torch.int32, device=radius.device)
     while True:
         cand = blk.find_candidates_super(bi, rec, radius, radius_sym,
-                                         boxsize, max_cand=m_sb)
+                                         boxsize, max_cand=m_sb, memo=widths,
+                                         sweeps=sweeps)
         if cand.overflow <= 0 or m_sb >= width_cap:
             break
         m_sb = min(-(-int((m_sb + cand.overflow) * 1.12) // 64) * 64,
                    width_cap)
-    need = int(cand.count.max())
-    width = (min(max(need, 1), m_sb) if widths is None
-             else trim_width(need, m_sb, widths, bi.n_blocks))
-    return cand._replace(idx=cand.idx[:, :width].contiguous())
+    need = cand.overflow + m_sb
+    if widths is None:
+        width = min(max(need, 1), m_sb)
+    else:
+        width = trim_width(need, m_sb, widths, bi.n_blocks)
+        widths[SEARCH_KEY] = min(m_sb, max(SB_WIDTH_START, 2 * width))
+    return cand._replace(idx=cand.idx[:, :width].contiguous(),
+                         searched=(first, m_sb))
 
 
 def block_boxes(pos_pad, boxsize):
@@ -228,19 +248,30 @@ def block_boxes(pos_pad, boxsize):
     return ref[:, 0] + d.amin(dim=1), ref[:, 0] + d.amax(dim=1)
 
 
+def _refresh_boxes(pos_sorted_gas, *, n_padded, boxsize):
+    """The box pass of ``refresh_candidates``: block and superblock boxes
+    of the current sorted positions."""
+    bb_lo, bb_hi = block_boxes(blk.pad_rows(pos_sorted_gas, n_padded),
+                               boxsize)
+    return (bb_lo, bb_hi) + blk.superblock_boxes(bb_lo, bb_hi)
+
+
 def refresh_candidates(state: NeighbourState, pos_sorted_gas,
-                       radius_sym_gas, boxsize, *,
-                       widths=None) -> NeighbourState:
+                       radius_sym_gas, boxsize, *, widths=None,
+                       sweeps=None) -> NeighbourState:
     """Rebuild the superblock lists from CURRENT positions, keeping the
     sort and block membership (once accumulated drift has spent the
-    lists' radius slack).  ``widths`` as for ``build_neighbours``."""
+    lists' radius slack).  ``widths`` and ``sweeps`` as for
+    ``build_neighbours``; the box pass runs through ``sweeps`` too (the
+    JAX package's ``_refresh_bboxes`` program)."""
     bi = state.index
     nb = bi.n_blocks
     n_gas = pos_sorted_gas.shape[0]
     pad = bi.n_padded - n_gas
-    bb_lo, bb_hi = block_boxes(blk.pad_rows(pos_sorted_gas, bi.n_padded),
-                               boxsize)
-    sb_lo, sb_hi = blk.superblock_boxes(bb_lo, bb_hi)
+    bb_lo, bb_hi, sb_lo, sb_hi = blk.run_sweep(
+        sweeps, ("boxes", n_gas, bi.n_padded, boxsize),
+        partial(_refresh_boxes, n_padded=bi.n_padded, boxsize=boxsize),
+        (pos_sorted_gas,), sweep=False)
     bi2 = bi._replace(bb_lo=bb_lo, bb_hi=bb_hi, sb_lo=sb_lo, sb_hi=sb_hi)
     radius = state.h_cap.reshape(nb, blk.BLOCK).amax(dim=1)
     sym = torch.cat([radius_sym_gas,
@@ -248,7 +279,7 @@ def refresh_candidates(state: NeighbourState, pos_sorted_gas,
         else radius_sym_gas
     radius_sym = sym.reshape(nb, blk.BLOCK).amax(dim=1)
     return state._replace(index=bi2, cand=_sb_candidates(
-        bi2, radius, radius_sym, boxsize, widths))
+        bi2, radius, radius_sym, boxsize, widths, sweeps))
 
 
 # --------------------------------------------------------------------------
@@ -285,7 +316,7 @@ def _pad_ids(ids, size):
 
 def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
                             symmetric=False, radius_sym_gas=None,
-                            widths=None):
+                            widths=None, sweeps=None):
     """Sort, blocks and block-granular candidate lists (the JAX package's
     ``_build_neighbours_blocks``).  The list width starts at
     MAX_CAND_START and grows on overflow up to MAX_CAND_CAP, the
@@ -295,17 +326,20 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
     ``quantize_size`` (m = -1), the lists at the whole searched width
     (rows of padded ids all -1, counts 0).  With ``radius_sym_gas`` the
     range is the union of the gather and the symmetric displacement
-    range.
+    range.  The lists carry the first and last list width searched
+    (``searched``).
 
     ``widths``: the memo of one WVT relaxation (a dict, also the memo of
-    ``classed_selections`` and of the tail size): the list width, the
-    superblock budget and the far-tail width start from the ones it
-    holds, grow as above and are stored back, never shrinking, so that
-    the relaxation's builds keep the shapes of its iteration program
-    (models/wvt.py).  The JAX package keeps these memos per process
-    (``_LAST_MAX_CAND``, ``_CLASS_SIZE_MEMO``); the port's lives as long
-    as the relaxation that holds it.  Without it every build starts from
-    the first widths and the tail gets the grid alone."""
+    ``classed_selections``, of the tail size and of the far tail's
+    second-pass rows): the list width, the superblock budget and the
+    far-tail width start from the ones it holds, grow as above and are
+    stored back, never shrinking, so that the relaxation's builds keep
+    the shapes of its iteration program (models/wvt.py).  The JAX
+    package keeps these memos per process (``_LAST_MAX_CAND``,
+    ``_CLASS_SIZE_MEMO``, ``_SUBSET_MEMO``); the port's lives as long as
+    the relaxation that holds it.  Without it every build starts from
+    the first widths and the tail gets the grid alone.  ``sweeps``: the
+    relaxation's ``blk.Sweeps``."""
     memo = {} if widths is None else widths
     bi = blk.build_blocks(pos_gas, boxsize)
     nb = bi.n_blocks
@@ -316,7 +350,7 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
     if radius_sym_gas is not None:
         sym = pad_sorted(radius_sym_gas, bi.order, bi.n_padded)
         radius_sym = sym.reshape(nb, blk.BLOCK).amax(dim=1)
-    max_cand = memo.get("max_cand", MAX_CAND_START)
+    max_cand = first = memo.get("max_cand", MAX_CAND_START)
     max_super, tail = memo.get("ms"), None
     ms_cap = min(ns, MS_CAP)
     while True:
@@ -324,7 +358,7 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
               else min(blk.default_max_super(ns, max_cand), ms_cap))
         cand = blk.find_candidates(bi, radius, boxsize, max_cand=max_cand,
                                    max_super=ms, symmetric=symmetric,
-                                   radius_sym=radius_sym)
+                                   radius_sym=radius_sym, sweeps=sweeps)
         if cand.sb_overflow > 0 and ms < ms_cap:
             # superblock budget too small: grow it, bounded (rows past
             # the ceiling become tail rows below)
@@ -334,13 +368,13 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
         # rows over either budget get superblock lists (the level-2
         # counts of rows over the superblock budget are undercounted, so
         # those are flagged too)
-        flagged = (cand.count > max_cand) | (cand.sb_count > ms)
-        if not bool(flagged.any()):
+        if cand.overflow <= 0 and cand.sb_overflow <= 0:
             break
         need = int((max_cand + max(cand.overflow, 0)) * 1.12)
         if need <= MAX_CAND_CAP and cand.sb_overflow <= 0:
             max_cand = min(MAX_CAND_CAP, -(-need // 128) * 128)
             continue
+        flagged = (cand.count > max_cand) | (cand.sb_count > ms)
         flagged_ids = torch.nonzero(flagged)[:, 0].to(torch.int32)
         ids = _pad_ids(flagged_ids, quantize_size(
             flagged_ids.shape[0], nb, -1, widths))
@@ -348,7 +382,8 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
         m_sb = memo.get("m_sb", TAIL_WIDTH_START)
         while True:
             cand_sb = blk.find_candidates_super(bi, ids, radius, sym,
-                                                boxsize, max_cand=m_sb)
+                                                boxsize, max_cand=m_sb,
+                                                memo=widths, sweeps=sweeps)
             if cand_sb.overflow <= 0:
                 break
             m_sb = -(-int((m_sb + cand_sb.overflow) * 1.12) // 128) * 128
@@ -358,8 +393,8 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
         break
     memo["max_cand"] = max_cand
     memo["ms"] = ms
-    return NeighbourState(index=bi, cand=cand, h_cap=h_cap, tail=tail,
-                          sb=False)
+    return NeighbourState(index=bi, cand=cand._replace(
+        searched=(first, max_cand)), h_cap=h_cap, tail=tail, sb=False)
 
 
 def classed_selections(state: NeighbourState, sizes=None):

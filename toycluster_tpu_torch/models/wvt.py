@@ -55,7 +55,11 @@ quantized class and far-tail sizes (``sph.build_neighbours_blocks``,
 far-tail states included, which are rebuilt at every iteration.
 Iterations run eagerly above the engine's PROGRAM_MAX_GAS gas (derived
 from the card's memory) and with ``ITER_PROGRAMS = False``.  On the CPU a
-program runs the body on its static buffers, without a graph.
+program runs the body on its static buffers, without a graph.  The
+candidate sweeps of the builds and list refreshes are programs too, under
+the same rules (``blk.Sweeps``, the counterpart of the JAX package's
+``jax.jit`` on each sweep): the host reads what a build needs (the widest
+row's count, the rows over the probe) between them.
 
 The large-run memory path, as in the JAX loop.  The loop reads only the
 gas positions and hsml of the particle set.  From OFFLOAD_N gas
@@ -89,6 +93,7 @@ from ..ops.class_pair import (fused_wvt, pack_fused_sources, pack_sources,
 from ..ops.stream_pair import stream_wvt
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
+from ..utils.graphs import CapturePool, capture
 from ..utils.logging import stage_log
 from ..utils.memory import stage_memory
 from . import sph as sph_mod
@@ -130,17 +135,21 @@ SCALARS = ("err_max", "err_mean", "n_sat", "dmax_rel", "p999_rel",
 # (module docstring); with False every iteration runs eagerly
 ITER_PROGRAMS = True
 # above this many gas particles every iteration of an engine runs
-# eagerly: half of one 80 GiB card over the engine's own bytes a gas
-# particle, the programs' (static buffers and graph pool) plus the eager
-# peak, each measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at
-# 700.00 W.  Stream (steps 6 and 11): the programs added 176-355 B at
-# 5e5 and 5e6 gas, the eager peak was 357.5 B at 5e7 gas; (355 + 357.5)
-# B x 6e7 = 39.8 GiB.  Count-class (two runs): the programs reserved
-# 520.9-528.1 B more than an eager run at 5e6 gas (step 11, config 4 at
-# 1e7, after empty_cache and reset_peak_memory_stats), the eager peak
-# reserved 463.1-470.9 B at 5e7 gas (step 6, A2); (528.1 + 470.9) B x
-# 4e7 = 37.2 GiB, and 5e7 gas would need 46.5 GiB
-PROGRAM_MAX_GAS = {"stream": 60_000_000, "classed": 40_000_000}
+# eagerly, and so do the sweeps of its builds: half of one 80 GiB card
+# over the engine's own bytes a gas particle, the programs' (static
+# buffers and graph pool) plus the eager peak, each measured by
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W.  Stream (steps
+# 6 and 11): the iteration programs added 176-355 B at 5e5 and 5e6 gas,
+# the superblock sweep's program 38.8 B at 5e7 gas (1.8066 GiB, step
+# 6), the eager peak was 357.5 B at 5e7 gas; (355 + 38.8 + 357.5) B x
+# 5.5e7 = 38.5 GiB, and 6e7 gas would need 42.0 GiB.  Count-class: the
+# programs, the sweeps' among them, reserved 674.0-710.9 B more than an
+# eager run at 5e6 gas (step 11, config 4 at 1e7, after empty_cache and
+# reset_peak_memory_stats; 520.9-528.1 B before the sweeps were
+# programs), the eager peak reserved 463.0-470.9 B at 5e7 gas (step 6,
+# A2); (710.9 + 470.9) B x 3.5e7 = 38.5 GiB, and 4e7 gas would need
+# 44.0 GiB
+PROGRAM_MAX_GAS = {"stream": 55_000_000, "classed": 35_000_000}
 # at this many gas particles or more the loop keeps on the device only
 # what it reads (``_Parked``): the JAX package's switch and default
 OFFLOAD_N = 20_000_000
@@ -297,8 +306,21 @@ class _Loop:
         # stream and the memory pool of their graphs; True while
         # ``speculate`` queues an iteration
         self.programs = OrderedDict()
-        self.stream = self.pool = None
+        self.graphs = CapturePool()
         self.in_window = False
+        # the candidate sweeps of the builds and list refreshes: programs
+        # under the iteration programs' rules, on the same stream and pool
+        self.sweeps = blk.Sweeps(self.eager_rule() is None, self.graphs)
+
+    def sweep_record(self, it):
+        """The counts of the sweeps since the last build or refresh, for
+        its record: ``sweeps`` run, programs ``replayed`` and
+        ``captured`` (each made one logged as ``wvt_graph`` of kind
+        "sweep")."""
+        n, replayed, made = self.sweeps.tally()
+        for rec in made:
+            self.log("wvt_graph", it=it, kind="sweep", **rec)
+        return dict(sweeps=n, replayed=replayed, captured=len(made))
 
     def model_fields(self, pos_gas):
         return _model_fields_from_rho(
@@ -553,7 +575,7 @@ class _Loop:
         self.captured += 1
         added = ({"added_gib": (torch.cuda.memory_reserved() - reserved)
                   / 2**30} if graph else {})
-        self.log("wvt_graph", it=it, key=key, graph=graph,
+        self.log("wvt_graph", it=it, kind="iteration", key=key, graph=graph,
                  seconds=time.perf_counter() - t0, kernels=prog.launches,
                  **added)
 
@@ -630,23 +652,9 @@ class _IterProgram:
         kernels' counters (and the loop's ``sb_launches``) are set back
         and the launches it recorded are added at each replay instead.
         Raises where capture fails."""
-        if loop.stream is None:
-            loop.stream = torch.cuda.Stream()
-            loop.pool = torch.cuda.graph_pool_handle()
         before = [k.launches for k in _KERNELS]
         sb_before = loop.sb_launches
-        graph = torch.cuda.CUDAGraph()
-        loop.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(loop.stream):
-            graph.capture_begin(pool=loop.pool)
-            try:
-                out = self.body(loop)
-            except BaseException:
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-        torch.cuda.current_stream().wait_stream(loop.stream)
+        graph, out = capture(lambda: self.body(loop), loop.graphs)
         for k, n in zip(_KERNELS, before):
             name = k.__name__
             sb = loop.sb_launches[name + "_sb"] - sb_before[name + "_sb"]
@@ -830,7 +838,12 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     list width, the count classes' and the far tail's shapes (``classes``,
     ``tail``: the JAX loop's ``class_shape`` and ``tail_shape``) and the
     far-tail rows; ``wvt_build`` and ``wvt_refresh`` carry the device
-    memory (``mem_gib``, ``peak_gib``) on a CUDA device.
+    memory (``mem_gib``, ``peak_gib``) on a CUDA device, the first and
+    last width the candidate search tried (``searched``), the candidate
+    sweeps the call ran (``sweeps``; a probe and its second pass are two)
+    and the sweep programs it replayed and made (``replayed``,
+    ``captured``; each made one logged as ``wvt_graph`` of kind
+    "sweep", the iteration programs' of kind "iteration").
 
     ``parts`` may come as a one-element list, the JAX package's holder
     protocol: the loop pops it, so where the caller keeps no reference
@@ -854,7 +867,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     dev = parts.device
     L = _Loop(scene, ha, n_gas, engine, dev, log)
     build = partial(sph_mod.build_neighbours if engine == "stream"
-                    else sph_mod.build_neighbours_blocks, widths=L.widths)
+                    else sph_mod.build_neighbours_blocks, widths=L.widths,
+                    sweeps=L.sweeps)
     desnngb, mpart, boxsize = L.desnngb, L.mpart, L.boxsize
     t_start = time.perf_counter()
 
@@ -951,13 +965,15 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                 t_refresh = time.perf_counter()
                 hm_w = (_metric_hsml(rho_model_l, mpart, desnngb)
                         * boxsize * SYM_MARGIN)
-                state = sph_mod.refresh_candidates(state, pos_gas, hm_w,
-                                                   boxsize, widths=L.widths)
+                state = sph_mod.refresh_candidates(
+                    state, pos_gas, hm_w, boxsize, widths=L.widths,
+                    sweeps=L.sweeps)
                 drift_acc = 0.0
                 _sync(dev)
+                t_refresh = time.perf_counter() - t_refresh
                 log("wvt_refresh", it=it, max_cand=state.max_cand,
-                    seconds=time.perf_counter() - t_refresh,
-                    **stage_memory(dev))
+                    seconds=t_refresh, searched=state.cand.searched,
+                    **L.sweep_record(it), **stage_memory(dev))
             else:
                 state = None
 
@@ -993,7 +1009,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                 _sync(dev)
                 t_build = time.perf_counter() - t_build
                 log("wvt_build", it=it, attempt=attempt, seconds=t_build,
-                    max_cand=state.max_cand,
+                    max_cand=state.max_cand, searched=state.cand.searched,
+                    **L.sweep_record(it),
                     classes=class_shape(L.selections(state)
                                         if engine == "classed" else None),
                     tail=tail_shape(state),
@@ -1117,6 +1134,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     _sync(dev)
     dt = time.perf_counter() - t_start
     L.programs.clear()
+    L.sweeps.clear()
     log("wvt_done", iterations=n_iter, seconds=dt,
         particle_updates_per_s=n_gas * n_iter / dt, speculated=n_spec,
         adopted=n_adopted, dropped=n_dropped, captured=L.captured,
