@@ -1050,6 +1050,21 @@ def row_name(lib, kw):
     return lib
 
 
+_RUN_LOG = None
+
+
+def run_log():
+    """The stage log of the script's runs: one
+    ``utils.logging.Records`` (each record a dict of t, stage and fields,
+    printed as ``stage_log`` prints it), cleared by ``counted``; every
+    run whose records are read logs to it."""
+    global _RUN_LOG
+    if _RUN_LOG is None:
+        from toycluster_tpu_torch.utils.logging import Records
+        _RUN_LOG = Records(echo=True)
+    return _RUN_LOG
+
+
 def counted(torch, sp, cp, drive, record=True):
     """``drive()`` with every launch counter and the stage log's records
     set to 0 just before; the kernel wrappers are patched by name to
@@ -1067,7 +1082,6 @@ def counted(torch, sp, cp, drive, record=True):
     name, launches by kernel, recorded inputs (or, by record name, the
     device ms and list shape of each call), wall s, start time)."""
     from toycluster_tpu_torch.models import bfield, sph, wvt
-    from toycluster_tpu_torch.utils import logging as tlog
 
     recorded, by_name = {}, Counter()
 
@@ -1084,7 +1098,9 @@ def counted(torch, sp, cp, drive, record=True):
             if name is not None:
                 by_name[name] += fn.launches - n0
                 if record:
-                    recorded.setdefault(name, (args, kw))
+                    # the loop's own stats= output is no input
+                    recorded.setdefault(name, (args, {
+                        k: v for k, v in kw.items() if k != "stats"}))
                 else:
                     # the call's (rows, width): its first int32 matrix
                     shape = next(tuple(a.shape) for a in args
@@ -1113,7 +1129,7 @@ def counted(torch, sp, cp, drive, record=True):
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, fn in patches:
         setattr(mod, attr, fn)
-    tlog.METRICS.clear()
+    run_log().clear()
     kernels = (sp.stream_wvt, sp.stream_curl, cp.solve_density,
                cp.wvt_displacement, cp.fused_wvt)
     for k in kernels:
@@ -1149,18 +1165,17 @@ def counted(torch, sp, cp, drive, record=True):
 def report_run(tag, t0, fell=True):
     """Print the stage times (and device memory where the record has it),
     the WVT record and the neighbour contract of the run whose stage-log
-    records ``tlog.METRICS`` holds; fail unless the contract fraction is
+    records ``run_log()`` holds; fail unless the contract fraction is
     >= 0.999 and, with ``fell``, err_mean fell to below 0.6 of its first
     value.  Returns the records."""
     from toycluster_tpu_torch.models import sph
-    from toycluster_tpu_torch.utils import logging as tlog
     report_stages(tag, t0)
-    errs = [r["err_mean"] for r in tlog.METRICS if r["stage"] == "wvt"]
-    done = [r for r in tlog.METRICS if r["stage"] == "wvt_done"]
-    builds = [r for r in tlog.METRICS if r["stage"] == "wvt_build"]
-    retries = [r for r in tlog.METRICS if r["stage"] == "wvt_retry"]
-    refreshes = [r for r in tlog.METRICS if r["stage"] == "wvt_refresh"]
-    stamps = [r["t"] for r in tlog.METRICS if r["stage"] == "wvt"]
+    errs = [r["err_mean"] for r in run_log() if r["stage"] == "wvt"]
+    done = [r for r in run_log() if r["stage"] == "wvt_done"]
+    builds = [r for r in run_log() if r["stage"] == "wvt_build"]
+    retries = [r for r in run_log() if r["stage"] == "wvt_retry"]
+    refreshes = [r for r in run_log() if r["stage"] == "wvt_refresh"]
+    stamps = [r["t"] for r in run_log() if r["stage"] == "wvt"]
     say(f"[{tag}] wvt err_mean trajectory ({len(errs)} iterations): "
         f"{errs}; wall between iterations, s "
         f"{[round(b - a, 3) for a, b in zip(stamps, stamps[1:])]}")
@@ -1185,14 +1200,13 @@ def report_run(tag, t0, fell=True):
     say(f"[{tag}] neighbour contract fraction {frac}")
     if not frac >= 0.999:
         fail(f"contract fraction {frac} < 0.999")
-    return list(tlog.METRICS)
+    return list(run_log())
 
 
 def report_stages(tag, t0):
     """Print the stage times (and device memory where the record has it)
     of the run that began at t0."""
-    from toycluster_tpu_torch.utils import logging as tlog
-    for stage, t, dt, rec in stage_spans(tlog.METRICS, t0):
+    for stage, t, dt, rec in stage_spans(run_log(), t0):
         mem = (f"; mem_gib {rec['mem_gib']:.4f} peak_gib "
                f"{rec['peak_gib']:.4f}" if "mem_gib" in rec else "")
         say(f"[{tag}] stage {stage:<16} ends at {t:9.3f} s (+{dt:.3f} s)"
@@ -1217,7 +1231,6 @@ def timed_halo_loops(torch):
     before and after, and book it to the stage the log records next.
     Returns (book {(record index, name): [calls, s]}, restore)."""
     import importlib
-    from toycluster_tpu_torch.utils import logging as tlog
     book, saved = {}, []
     for mod_name, attr in HALO_LOOPS:
         mod = importlib.import_module(f"{PKG}.models.{mod_name}")
@@ -1228,7 +1241,7 @@ def timed_halo_loops(torch):
             t = time.perf_counter()
             out = _fn(*args, **kw)
             torch.cuda.synchronize()
-            rec = book.setdefault((len(tlog.METRICS), _name), [0, 0.0])
+            rec = book.setdefault((len(run_log()), _name), [0, 0.0])
             rec[0] += 1
             rec[1] += time.perf_counter() - t
             return out
@@ -1300,7 +1313,8 @@ def run_main_path(torch, sp, cp, tmp, engine):
     out = Path(tmp) / f"IC_{engine}"
     rc, launches, _, recorded, wall, t0 = counted(
         torch, sp, cp, lambda: cli.main([str(par), f"output_file={out}",
-                                         "device=cuda", f"engine={engine}"]))
+                                         "device=cuda", f"engine={engine}"],
+                                        log=run_log()))
     if rc != 0:
         fail(f"cli.main returned {rc} (engine={engine})")
     need = (("stream_wvt", "stream_curl") if engine == "stream" else
@@ -1392,7 +1406,6 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     functions (``timed_halo_loops``) for their share of each stage.
     Returns the first run's err_mean trajectory."""
     from toycluster_tpu_torch.pipeline import make_ics
-    from toycluster_tpu_torch.utils import logging as tlog
     tag = f"config-4 {ntotal:.0e} {engine}"
     out = Path(tmp) / f"IC_sub_{engine}"
     cfg = config4(ntotal, out, report_subhalos=True,
@@ -1402,7 +1415,7 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     torch.cuda.reset_peak_memory_stats()
     (scene, parts), launches, totals, recorded, wall, t0 = counted(
         torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
-                                        check=True))
+                                        check=True, log=run_log()))
     peak = torch.cuda.max_memory_allocated()
     say(f"[{tag}] slow_substructure={slow}; wall {wall:.3f} s; launches "
         f"{launches}")
@@ -1423,14 +1436,15 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     try:
         _, _, _, recorded, wall, t0 = counted(
             torch, sp, cp, lambda: make_ics(cfg, device="cuda",
-                                            engine=engine, write=False))
+                                            engine=engine, write=False,
+                                            log=run_log()))
     finally:
         restore()
         wvt.ITER_PROGRAMS = True
     del recorded
     say(f"[{tag}] instrumented run (every per-halo call synchronised): "
         f"wall {wall:.3f} s")
-    report_halo_loops(f"{tag} instrumented", book, list(tlog.METRICS), t0)
+    report_halo_loops(f"{tag} instrumented", book, list(run_log()), t0)
     return [r["err_mean"] for r in recs if r["stage"] == "wvt"]
 
 
@@ -1509,8 +1523,8 @@ def run_large(torch, sp, cp, tmp, engine):
         (scene, parts), launches, totals, dev_ms, wall, t0 = counted(
             torch, sp, cp, lambda: make_ics(
                 cfg, device="cuda", engine=engine, check=True,
-                wvt_checkpoint=None if ck is None else str(ck)),
-            record=False)
+                wvt_checkpoint=None if ck is None else str(ck),
+                log=run_log()), record=False)
     finally:
         blk._find_candidates_super_k = sweep
     peak = torch.cuda.max_memory_allocated()
@@ -1670,7 +1684,6 @@ def run_offload_gate(torch):
     from toycluster_tpu_torch.models import wvt
     from toycluster_tpu_torch.particles import Particles
     from toycluster_tpu_torch.pipeline import make_ics
-    from toycluster_tpu_torch.utils import logging as tlog
     tag = f"offload gate, config-4 {LARGE_NTOTAL:.0e} stream"
     cfg = config4(LARGE_NTOTAL, "unused", wvt_max_iter=OFFLOAD_GATE_ITER)
     handed, regularise = {}, wvt.regularise_sph_particles
@@ -1703,12 +1716,13 @@ def run_offload_gate(torch):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             mem0 = torch.cuda.memory_allocated()
-            tlog.METRICS.clear()
+            run_log().clear()
             t = time.perf_counter()
             parts, _ = wvt.regularise_sph_particles(
-                handed["scene"], handed["ha"], holder, engine="stream")
+                handed["scene"], handed["ha"], holder, engine="stream",
+                log=run_log())
             wall = time.perf_counter() - t
-            recs = list(tlog.METRICS)
+            recs = list(run_log())
             build = [r for r in recs if r["stage"] == "wvt_build"][0]
             offload = [r for r in recs if r["stage"] == "wvt_offload"]
             restore = [r for r in recs if r["stage"] == "wvt_restore"]
@@ -1749,7 +1763,6 @@ def run_resume(torch, sp, cp, tmp):
     of err_mean, end with err_mean <= the file's err_last, and write a
     trace that parses and names a count-class kernel."""
     from toycluster_tpu_torch.pipeline import make_ics
-    from toycluster_tpu_torch.utils import logging as tlog
     ntotal = RESUME_NTOTAL
     tag = f"config-4 {ntotal:.0e} classed"
     ck = Path(tmp) / "wvt_resume.npz"
@@ -1757,7 +1770,8 @@ def run_resume(torch, sp, cp, tmp):
     cfg = config4(ntotal, Path(tmp) / "IC_resume", wvt_max_iter=16)
     _, launches, _, _, wall, t0 = counted(
         torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine="classed",
-                                        write=False, wvt_checkpoint=str(ck)),
+                                        write=False, wvt_checkpoint=str(ck),
+                                        log=run_log()),
         record=False)
     say(f"[{tag} run 1, wvt_max_iter=16] wall {wall:.3f} s; launches "
         f"{launches}")
@@ -1771,8 +1785,9 @@ def run_resume(torch, sp, cp, tmp):
     (scene, parts), launches, totals, _, wall, t0 = counted(
         torch, sp, cp, lambda: make_ics(
             cfg, device="cuda", engine="classed", check=True, write=False,
-            wvt_checkpoint=str(ck), profile_dir=str(prof)), record=False)
-    resumed = [r for r in tlog.METRICS if r["stage"] == "wvt_resume"]
+            wvt_checkpoint=str(ck), profile_dir=str(prof),
+            log=run_log()), record=False)
+    resumed = [r for r in run_log() if r["stage"] == "wvt_resume"]
     say(f"[{tag} run 2, resumed] wall {wall:.3f} s; launches {launches}; "
         f"{resumed}")
     if not (len(resumed) == 1 and resumed[0]["it"] == 16
@@ -2453,7 +2468,8 @@ def run_preset(torch, sp, cp, tmp, n, engine):
     torch.cuda.reset_peak_memory_stats()
     _, launches, _, _, wall, t0 = counted(
         torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
-                                        check=True), record=False)
+                                        check=True, log=run_log()),
+        record=False)
     peak = torch.cuda.max_memory_allocated()
     say(f"[{tag}] ntotal {cfg.ntotal}; wall {wall:.3f} s; launches "
         f"{launches}; peak device memory {peak / 2**30:.4f} GiB")
@@ -2489,7 +2505,7 @@ def run_variant(torch, sp, cp, tmp, tag, engine, tokens, par_lines=()):
     rc, launches, _, recorded, wall, t0 = counted(
         torch, sp, cp, lambda: cli.main(
             [str(par), *tokens, f"output_file={out}", "device=cuda",
-             f"engine={engine}"]))
+             f"engine={engine}"], log=run_log()))
     if rc != 0:
         fail(f"[{tag}] cli.main returned {rc}")
     say(f"[{tag}] engine={engine} {' '.join(tokens)}: wall {wall:.3f} s, "
@@ -2498,9 +2514,8 @@ def run_variant(torch, sp, cp, tmp, tag, engine, tokens, par_lines=()):
     if gas:
         recs = report_run(tag, t0)
     else:
-        from toycluster_tpu_torch.utils import logging as tlog
         report_stages(tag, t0)
-        recs = list(tlog.METRICS)
+        recs = list(run_log())
     path_kernels(tag, engine, cfg, launches, recs)
     snap = check_snapshot(out, cfg.ntotal, bfld=bool(gas and cfg.bfld_norm))
     out.unlink()
@@ -2589,7 +2604,8 @@ def spec_run(torch, sp, cp, tmp, tag, engine, ntotal):
            else config4(ntotal, out))
     (scene, parts), launches, totals, _, wall, t0 = counted(
         torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
-                                        check=True), record=False)
+                                        check=True, log=run_log()),
+        record=False)
     say(f"[{tag}] wall {wall:.3f} s; launches {launches}")
     if ntotal is None:
         need = (("stream_wvt", "stream_curl") if engine == "stream" else
@@ -2701,7 +2717,6 @@ def program_run(torch, sp, cp, tmp, engine, what, on):
     from toycluster_tpu_torch.models import wvt
     from toycluster_tpu_torch.pipeline import make_ics
     from toycluster_tpu_torch.run_configs import PRESETS
-    from toycluster_tpu_torch.utils import logging as tlog
     out = Path(tmp) / "IC_programs"
     cfg = (par_config(**{**PRESETS[1], "output_file": str(out)})
            if what == "preset1" else
@@ -2714,11 +2729,12 @@ def program_run(torch, sp, cp, tmp, engine, what, on):
         torch.cuda.reset_peak_memory_stats()
         (_, parts), launches, _, _, _, _ = counted(
             torch, sp, cp, lambda: make_ics(cfg, device="cuda",
-                                            engine=engine, write=False),
+                                            engine=engine, write=False,
+                                            log=run_log()),
             record=False)
         peak = torch.cuda.max_memory_allocated()
         peak_reserved = torch.cuda.max_memory_reserved()
-        recs = list(tlog.METRICS)
+        recs = list(run_log())
         tr = trace.trace_make_ics(cfg, engine)
     finally:
         wvt.ITER_PROGRAMS = True

@@ -24,6 +24,7 @@ import torch
 from .config import parse_par_file
 from .models.sph import check_engine
 from .pipeline import make_ics
+from .utils.logging import stage_log
 
 
 def _coerce(v: str):
@@ -46,7 +47,9 @@ def check_device(device: str) -> None:
                            "device=cpu to run on the CPU")
 
 
-def main(argv=None):
+def main(argv=None, log=stage_log):
+    """The CLI on ``argv`` (``sys.argv[1:]`` by default); ``log``: the
+    stage log's receiver (``pipeline.make_ics``)."""
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("Usage: python -m toycluster_tpu_torch <parameterfile> "
@@ -66,7 +69,7 @@ def main(argv=None):
     check_device(device)
     check_engine(engine)
     cfg = parse_par_file(argv[0], **overrides)
-    make_ics(cfg, device=device, engine=engine)
+    make_ics(cfg, device=device, engine=engine, log=log)
     return 0
 
 

@@ -23,6 +23,7 @@ from ..ops.interp import SplineTable, batched_spline_eval, spline_eval
 from ..ops.kernels import wc2
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
+from ..utils.logging import Spans
 from .eddington import NTABLE, RMIN, build_distribution_function
 from .positions import sphere_dirs, uniform
 
@@ -136,10 +137,14 @@ def _stack_tables(vts):
     return VelocityTables(*(stack(*field) for field in zip(*vts)))
 
 
-def sample_dm_velocities(gen, scene, ha, parts, bulk):
+def sample_dm_velocities(gen, scene, ha, parts, bulk, spans=None):
     """All-halo DM velocities: inverse-CDF speed from the particle's halo
     rows, bounded by the exact per-particle escape speed, an isotropic
-    direction, plus the halo bulk velocity."""
+    direction, plus the halo bulk velocity.  Each halo's tables are a
+    ``velocity_table`` span of ``spans`` (a ``utils.logging.Spans``) with
+    its ``halo``, over a ``velocity_fE`` span (the host f(E) and
+    potential tables) and a ``velocity_cdf`` span (the speed CDFs)."""
+    spans = Spans() if spans is None else spans
     n_gas = scene.npart_gas
     n_halos = scene.nhalos
     dev = parts.device
@@ -150,9 +155,13 @@ def sample_dm_velocities(gen, scene, ha, parts, bulk):
     r_his = r_his.scatter_reduce(0, halo, r, reduce="amax")
     r_his = torch.clamp(r_his, min=RMIN * 2.0)
 
-    vts = [build_velocity_tables(scene, i, dev) for i in range(n_halos)]
-    tabs = [speed_cdf_table(vt, RMIN, float(rh))
-            for vt, rh in zip(vts, r_his.tolist())]
+    vts, tabs = [], []
+    for i, rh in enumerate(r_his.tolist()):
+        with spans.span("velocity_table", halo=i):
+            with spans.span("velocity_fE"):
+                vts.append(build_velocity_tables(scene, i, dev))
+            with spans.span("velocity_cdf"):
+                tabs.append(speed_cdf_table(vts[-1], RMIN, float(rh)))
     cdf = torch.cat([c for c, _ in tabs])          # (H * R, V)
     ok_row = torch.cat([ok for _, ok in tabs])
     vt = _stack_tables(vts)
@@ -228,12 +237,13 @@ def gas_bulk_velocities(pos_gas, gas_halo, bulk, d_com, sub_hh, sub_first,
     return bulk[gas_halo.long()] * wk[:, None]
 
 
-def make_velocities(gen, scene: Scene, ha: HaloArrays, parts: Particles
-                    ) -> Particles:
+def make_velocities(gen, scene: Scene, ha: HaloArrays, parts: Particles,
+                    spans=None) -> Particles:
     """DM peculiar velocities per halo, then the bulk velocities (gas of
     subhalos tapered by a WC2 weight) (velocities.c:38-159).  Under
     SLOW_SUBSTRUCTURE the subhalo bulk velocities are replaced first;
-    the Shift_Origin add before them keeps the setup's."""
+    the Shift_Origin add before them keeps the setup's.  ``spans``: as
+    for ``sample_dm_velocities``."""
     parts = add_bulk_velocities(parts, ha)
     vel = parts.vel
     n_gas = scene.npart_gas
@@ -253,7 +263,8 @@ def make_velocities(gen, scene: Scene, ha: HaloArrays, parts: Particles
                                device=parts.device)
     if parts.n_total - n_gas:
         vel = torch.cat([vel[:n_gas],
-                         sample_dm_velocities(gen, scene, ha, parts, bulk)])
+                         sample_dm_velocities(gen, scene, ha, parts, bulk,
+                                              spans)])
     if n_gas:
         sub_hh = [h.r_sample_gas * 1.1 for h in scene.halos]
         vel = torch.cat([vel[:n_gas] + gas_bulk_velocities(

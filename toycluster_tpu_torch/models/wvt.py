@@ -94,7 +94,7 @@ from ..ops.stream_pair import stream_wvt
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
 from ..utils.graphs import CapturePool, capture
-from ..utils.logging import stage_log
+from ..utils.logging import Spans, stage_log
 from ..utils.memory import stage_memory
 from . import sph as sph_mod
 
@@ -275,6 +275,9 @@ class _Loop:
     _sels = (None, None)
     widths = None
     sb_launches = Counter()
+    # the pair-work counter (``__init__``): a loop made without it
+    # counts no pairs
+    pairs = None
 
     def __init__(self, scene: Scene, ha: HaloArrays, n_gas: int,
                  engine: str, device, log=stage_log):
@@ -295,6 +298,11 @@ class _Loop:
         self.gas_halos = sph_mod.gas_halos(ha)
         self.log = log
         self.widths = {}
+        # the relaxation's spans (``wvt_done`` carries them) and its
+        # pair-work counter: the 128 x 128-pair blocks that every pair
+        # kernel call walked (``count_pairs``), on the device
+        self.spans = Spans()
+        self.pairs = torch.zeros((), dtype=torch.int64, device=device)
         # the eager iterations' dynamic scalars (``iterate``)
         self.it_d = torch.zeros((), dtype=torch.int32, device=device)
         self.margin_d = torch.zeros((), dtype=torch.float32, device=device)
@@ -310,7 +318,8 @@ class _Loop:
         self.in_window = False
         # the candidate sweeps of the builds and list refreshes: programs
         # under the iteration programs' rules, on the same stream and pool
-        self.sweeps = blk.Sweeps(self.eager_rule() is None, self.graphs)
+        self.sweeps = blk.Sweeps(self.eager_rule() is None, self.graphs,
+                                 spans=self.spans)
 
     def sweep_record(self, it):
         """The counts of the sweeps since the last build or refresh, for
@@ -321,6 +330,19 @@ class _Loop:
         for rec in made:
             self.log("wvt_graph", it=it, kind="sweep", **rec)
         return dict(sweeps=n, replayed=replayed, captured=len(made))
+
+    def walk_stats(self, rows, cols, device):
+        """A zeroed (rows, cols) int32 ``stats=`` output of a pair kernel
+        call, or None where the loop counts no pairs."""
+        if self.pairs is None:
+            return None
+        return torch.zeros((rows, cols), dtype=torch.int32, device=device)
+
+    def count_pairs(self, walked):
+        """Add a call's walked source blocks (per row, each 128 x 128
+        pairs: 128 receiver lanes against one 128-lane source block) to
+        the counter; queues work and reads nothing back."""
+        self.pairs.add_(walked.sum())
 
     def model_fields(self, pos_gas):
         return _model_fields_from_rho(
@@ -376,23 +398,36 @@ class _Loop:
                     pos_t, hm_blocks, self.boxsize, ctab=packed(h_b3).ctab)
             return packs["fused"]
 
+        # the pairs walked: the density blocks the fused kernel walked
+        # over all its sweeps (its displacement shares sweep 0's walk),
+        # and the blocks each two-pass kernel walked
         def fused(ids, rows, cnt):
             idc = torch.clamp(ids, min=0).long()
-            return fused_wvt(pos_t, hm_blocks, rows, cnt, pos_t[idc],
-                             h0_b[idc], cap_b[idc], hm_b[idc], self.mpart,
-                             self.boxsize, packed=packed_fused(), **kw)
+            st = self.walk_stats(rows.shape[0], 5, rows.device)
+            res = fused_wvt(pos_t, hm_blocks, rows, cnt, pos_t[idc],
+                            h0_b[idc], cap_b[idc], hm_b[idc], self.mpart,
+                            self.boxsize, packed=packed_fused(), stats=st,
+                            **kw)
+            if st is not None:
+                self.count_pairs(st[:, 3])
+            return res
 
         def two_pass(ids, rows, sb_mode):
             idc = torch.clamp(ids, min=0).long()
             cluster = _sp.padded_cluster(rows, sb_mode)
+            st = [self.walk_stats(rows.shape[0], 4, rows.device)
+                  for _ in range(2)]
             res = solve_density(pos_t, valid_t, rows, pos_t[idc], h0_b[idc],
                                 cap_b[idc], self.mpart, self.boxsize,
                                 sb_mode=sb_mode, cluster=cluster,
-                                packed=packed(None), **kw)[:5]
-            return res + (wvt_displacement(
+                                packed=packed(None), stats=st[0], **kw)[:5]
+            res += (wvt_displacement(
                 pos_t, valid_t, h_b3, rows, pos_t[idc], hm_b[idc], 1.0,
                 self.boxsize, kernel=self.kernel, sb_mode=sb_mode,
-                cluster=cluster, packed=packed(h_b3)),)
+                cluster=cluster, packed=packed(h_b3), stats=st[1]),)
+            if st[0] is not None:
+                self.count_pairs(st[0][:, 3] + st[1][:, 3])
+            return res
 
         def tail(ids, sb_rows, sb_cnt):
             n0 = [k.launches for k in _SB_KERNELS]
@@ -450,11 +485,17 @@ class _Loop:
             cap_eff = torch.where(pad1(sat_mask), h_cap_pad,
                                   torch.minimum(h_cap_pad, h0_s * margin))
             src, pos_t = sph_mod.source_blocks(pad1(pos_gas), hm_src)
+            st = self.walk_stats(nb, 4, dev)
             rho, hsml, vf, wk, done, delta = stream_wvt(
                 src, state.cand.idx, state.cand.count, pos_t,
                 h0_s.reshape(nb, blk.BLOCK), cap_eff.reshape(nb, blk.BLOCK),
                 hm_s.reshape(nb, blk.BLOCK), self.mpart, self.boxsize,
-                kernel=self.kernel, desnngb=self.desnngb, do_disp=True)
+                kernel=self.kernel, desnngb=self.desnngb, do_disp=True,
+                stats=st)
+            if st is not None:
+                # sweep 0 walks the members kept for either consumer,
+                # every later sweep those kept for the density
+                self.count_pairs(st[:, 1] + (st[:, 0] - 1) * st[:, 2])
         rho, hsml, vf, wk, done = (x.reshape(-1)
                                    for x in (rho, hsml, vf, wk, done))
         delta = delta.reshape(-1, 3)
@@ -526,7 +567,18 @@ class _Loop:
         (on a CUDA device captured) after it; inside the speculation
         window (``speculate``) that raises instead.  Returns ``body``'s
         dict; queues work and reads nothing back (but the classed
-        selections at a state's first iteration)."""
+        selections at a state's first iteration).  Spanned as
+        ``wvt_step`` of kind "queued" (inside the window), "replay" or
+        "eager"."""
+        with self.spans.span("wvt_step", it=it) as span:
+            out, kind = self._iterate(state, pos_gas, h_prev, rhom_prev,
+                                      sat_mask, margin_w, fac_gas, step,
+                                      err_last, it)
+            span["kind"] = "queued" if self.in_window else kind
+        return out
+
+    def _iterate(self, state, pos_gas, h_prev, rhom_prev, sat_mask,
+                 margin_w, fac_gas, step, err_last, it):
         sels = self.selections(state) if self.engine == "classed" else None
         inputs = (pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step,
                   err_last)
@@ -536,7 +588,7 @@ class _Loop:
         if prog is not None:
             self.programs.move_to_end(key)
             self.replayed += 1
-            return prog.run(self, state, sels, inputs, margin_w, it)
+            return prog.run(self, state, sels, inputs, margin_w, it), "replay"
         if rule is None and self.in_window:
             raise RuntimeError(
                 f"no iteration program for {key} at it = {it}: a capture "
@@ -552,7 +604,7 @@ class _Loop:
                         self.margin_d, fac_gas, step, err_last, self.it_d)
         if rule is None:
             self.make_program(key, state, sels, inputs, it)
-        return out
+        return out, "eager"
 
     def make_program(self, key, state, sels, inputs, it):
         """Make the program for ``key`` (captured on a CUDA device; the
@@ -562,22 +614,22 @@ class _Loop:
         or a list refresh, whose synchronisation finished every replay
         of the programs freed here.  On a CUDA device the log also holds
         ``added_gib``, the device memory the allocator reserved for the
-        program (its static buffers and the growth of the graphs' pool)."""
-        t0 = time.perf_counter()
-        graph = inputs[0].is_cuda
-        reserved = torch.cuda.memory_reserved() if graph else 0
-        while len(self.programs) >= PROGRAMS_LIVE:
-            self.programs.popitem(last=False)
-        prog = _IterProgram(state, sels, inputs)
-        if graph:
-            prog.capture(self)
-        self.programs[key] = prog
-        self.captured += 1
-        added = ({"added_gib": (torch.cuda.memory_reserved() - reserved)
-                  / 2**30} if graph else {})
+        program (its static buffers and the growth of the graphs' pool).
+        Spanned as ``wvt_capture`` of kind "iteration"."""
+        with self.spans.span("wvt_capture", kind="iteration") as span:
+            graph = inputs[0].is_cuda
+            reserved = torch.cuda.memory_reserved() if graph else 0
+            while len(self.programs) >= PROGRAMS_LIVE:
+                self.programs.popitem(last=False)
+            prog = _IterProgram(state, sels, inputs)
+            if graph:
+                prog.capture(self)
+            self.programs[key] = prog
+            self.captured += 1
+            added = ({"added_gib": (torch.cuda.memory_reserved() - reserved)
+                      / 2**30} if graph else {})
         self.log("wvt_graph", it=it, kind="iteration", key=key, graph=graph,
-                 seconds=time.perf_counter() - t0, kernels=prog.launches,
-                 **added)
+                 seconds=span["seconds"], kernels=prog.launches, **added)
 
     def speculate(self, state, out, margin_w, sat_false, it):
         """Iteration ``it`` queued from the previous iteration's device
@@ -845,6 +897,19 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     ``captured``; each made one logged as ``wvt_graph`` of kind
     "sweep", the iteration programs' of kind "iteration").
 
+    ``wvt_done`` also carries ``pairs_walked``, the pairs that every pair
+    kernel call of the loop walked (eager, replayed, queued, retried and
+    dropped iterations alike; read once, after the loop's last
+    synchronisation), and ``spans`` (``utils.logging.Spans``): the root
+    ``wvt_loop`` (its seconds are ``wvt_done``'s), one ``wvt_iteration``
+    a pass of the loop (``it``), and below it ``wvt_build`` (``it``,
+    ``attempt``) and ``wvt_refresh`` (``it``) over the intervals that
+    their records' seconds cover, ``wvt_sweep`` (each ``blk.Sweeps.run``
+    call), ``wvt_capture`` (each program made, over what its
+    ``wvt_graph`` seconds cover), ``wvt_step`` (each ``_Loop.iterate``
+    call) and ``wvt_wait`` (the host waiting on an iteration's scalars);
+    after the root, ``wvt_release`` (the programs freed).
+
     ``parts`` may come as a one-element list, the JAX package's holder
     protocol: the loop pops it, so where the caller keeps no reference
     of its own, a run of ``offload_enabled`` size frees the buffers the
@@ -870,7 +935,9 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                     else sph_mod.build_neighbours_blocks, widths=L.widths,
                     sweeps=L.sweeps)
     desnngb, mpart, boxsize = L.desnngb, L.mpart, L.boxsize
-    t_start = time.perf_counter()
+    spans = L.spans
+    # the loop's root span: its seconds are wvt_done's
+    root = spans.open("wvt_loop", profile=False)
 
     # step size (wvt_relax.c:48-56)
     if cfg.sph_kernel == "m4":
@@ -950,7 +1017,11 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
             log("wvt_drop", it=pending[0], at=it, reason=reason)
         return None
 
+    it_span = None
     for it in range(it0, max_iter + 1):
+        if it_span is not None:
+            spans.close(it_span)
+        it_span = spans.open("wvt_iteration", it=it)
         if (its_since_build >= REBUILD_EVERY
                 or sort_drift_acc > SORT_DRIFT_BUDGET
                 or (state is not None and state.tail is not None)):
@@ -962,17 +1033,16 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
             # engine rebuilds
             pending = drop("refresh", it)
             if engine == "stream" and rho_model_l is not None:
-                t_refresh = time.perf_counter()
-                hm_w = (_metric_hsml(rho_model_l, mpart, desnngb)
-                        * boxsize * SYM_MARGIN)
-                state = sph_mod.refresh_candidates(
-                    state, pos_gas, hm_w, boxsize, widths=L.widths,
-                    sweeps=L.sweeps)
-                drift_acc = 0.0
-                _sync(dev)
-                t_refresh = time.perf_counter() - t_refresh
+                with spans.span("wvt_refresh", it=it) as span:
+                    hm_w = (_metric_hsml(rho_model_l, mpart, desnngb)
+                            * boxsize * SYM_MARGIN)
+                    state = sph_mod.refresh_candidates(
+                        state, pos_gas, hm_w, boxsize, widths=L.widths,
+                        sweeps=L.sweeps)
+                    drift_acc = 0.0
+                    _sync(dev)
                 log("wvt_refresh", it=it, max_cand=state.max_cand,
-                    seconds=t_refresh, searched=state.cand.searched,
+                    seconds=span["seconds"], searched=state.cand.searched,
                     **L.sweep_record(it), **stage_memory(dev))
             else:
                 state = None
@@ -990,25 +1060,25 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                         fac_gas)
                 h_cap_gas = torch.clamp(
                     torch.maximum(h0, h0_model) * fac_gas, max=L.h_hard)
-                t_build = time.perf_counter()
-                state = build(pos_gas, h_cap_gas, boxsize,
-                              radius_sym_gas=h_box * boxsize * SYM_MARGIN)
-                del h0_model, h_box, h0, h_cap_gas
-                # adopt the sorted layout on the loop arrays
-                order = state.index.order
-                order_acc = order_acc[order]
-                pos_gas = state.index.pos[:n_gas]
-                h_prev = h_prev[order]
-                rhom_prev = rhom_prev[order]
-                fac_gas = fac_gas[order]
-                if sat_mask is not sat_false:
-                    sat_mask = sat_mask[order]
-                its_since_build = 0
-                drift_acc = 0.0
-                sort_drift_acc = 0.0
-                _sync(dev)
-                t_build = time.perf_counter() - t_build
-                log("wvt_build", it=it, attempt=attempt, seconds=t_build,
+                with spans.span("wvt_build", it=it, attempt=attempt) as span:
+                    state = build(pos_gas, h_cap_gas, boxsize,
+                                  radius_sym_gas=h_box * boxsize * SYM_MARGIN)
+                    del h0_model, h_box, h0, h_cap_gas
+                    # adopt the sorted layout on the loop arrays
+                    order = state.index.order
+                    order_acc = order_acc[order]
+                    pos_gas = state.index.pos[:n_gas]
+                    h_prev = h_prev[order]
+                    rhom_prev = rhom_prev[order]
+                    fac_gas = fac_gas[order]
+                    if sat_mask is not sat_false:
+                        sat_mask = sat_mask[order]
+                    its_since_build = 0
+                    drift_acc = 0.0
+                    sort_drift_acc = 0.0
+                    _sync(dev)
+                log("wvt_build", it=it, attempt=attempt,
+                    seconds=span["seconds"],
                     max_cand=state.max_cand, searched=state.cand.searched,
                     **L.sweep_record(it),
                     classes=class_shape(L.selections(state)
@@ -1040,7 +1110,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                     pending = (it + 1, L.speculate(state, out, margin_warm,
                                                    sat_false, it + 1))
                     n_spec += 1
-            sc = host.read()
+            with spans.span("wvt_wait", it=it):
+                sc = host.read()
             n_sat = int(sc["n_sat"])
             if n_sat == 0:
                 fac_gas = out["fac_new"]
@@ -1117,6 +1188,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                              err_last, err_diff_last, it)
             log("wvt_checkpoint", it=it, seconds=time.perf_counter() - t_ck)
 
+    if it_span is not None:
+        spans.close(it_span)
     state = None
     if parked is not None:
         t_back = time.perf_counter()
@@ -1132,13 +1205,18 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
             parts = parts.replace(rho=rho_l, hsml=hsml_l, var_hsml_fac=vf_l,
                                   rho_model=rho_model_l)
     _sync(dev)
-    dt = time.perf_counter() - t_start
-    L.programs.clear()
-    L.sweeps.clear()
+    dt = spans.close(root)
+    pairs_walked = int(L.pairs) * blk.BLOCK * blk.BLOCK
+    # freeing the programs' graphs takes tens of ms on a card: after the
+    # loop's seconds, inside make_ics's WVT range
+    with spans.span("wvt_release"):
+        L.programs.clear()
+        L.sweeps.clear()
     log("wvt_done", iterations=n_iter, seconds=dt,
         particle_updates_per_s=n_gas * n_iter / dt, speculated=n_spec,
         adopted=n_adopted, dropped=n_dropped, captured=L.captured,
-        replayed=L.replayed, eager=L.eager)
+        replayed=L.replayed, eager=L.eager, pairs_walked=pairs_walked,
+        spans=spans.take())
     return parts, fresh
 
 

@@ -29,13 +29,13 @@ widest count and the rows over the probe between sweeps.
 
 from __future__ import annotations
 
-import time
 from functools import partial
 from typing import NamedTuple
 
 import torch
 
 from ..utils.graphs import CapturePool, Program
+from ..utils.logging import Spans
 
 BLOCK = 128        # particles per block
 SUPER = 8          # blocks per superblock
@@ -177,11 +177,16 @@ class Sweeps:
     ``programs`` every call runs eagerly.  Counts (``tally``): the sweeps
     run, the programs replayed and the programs made, each made one with
     its key, seconds and, on a CUDA device, the memory the allocator
-    reserved for it (``added_gib``)."""
+    reserved for it (``added_gib``).  Each call is a ``wvt_sweep`` span of
+    ``spans`` (a ``utils.logging.Spans``, the loop's) of kind "eager",
+    "replay" or "capture" (the first call of a key), the last with a
+    ``wvt_capture`` span of kind "sweep" over the program's making, whose
+    seconds are the made program's."""
 
-    def __init__(self, programs=False, pool=None):
+    def __init__(self, programs=False, pool=None, spans=None):
         self.on = programs
         self.pool = CapturePool() if pool is None else pool
+        self.spans = Spans() if spans is None else spans
         self.programs = {}
         self._reset()
 
@@ -193,25 +198,30 @@ class Sweeps:
         """``fn(*args)`` (a tuple of tensors) for ``key``, as above;
         ``sweep``: count it as a candidate sweep."""
         self.sweeps += sweep
-        if not self.on:
-            return fn(*args)
-        prog = self.programs.get(key)
-        if prog is not None:
-            self.replayed += 1
-            return prog.run(args)
-        out = fn(*args)
-        t0 = time.perf_counter()
-        graph = args[0].is_cuda
-        reserved = torch.cuda.memory_reserved() if graph else 0
-        prog = Program(fn, args)
-        if graph:
-            prog.capture(self.pool)
-        self.programs[key] = prog
+        with self.spans.span("wvt_sweep") as span:
+            prog = self.programs.get(key) if self.on else None
+            span["kind"] = ("eager" if not self.on else
+                            "replay" if prog is not None else "capture")
+            if prog is not None:
+                self.replayed += 1
+                return prog.run(args)
+            out = fn(*args)
+            if self.on:
+                self._make(key, fn, args)
+        return out
+
+    def _make(self, key, fn, args):
+        with self.spans.span("wvt_capture", kind="sweep") as span:
+            graph = args[0].is_cuda
+            reserved = torch.cuda.memory_reserved() if graph else 0
+            prog = Program(fn, args)
+            if graph:
+                prog.capture(self.pool)
+            self.programs[key] = prog
         self.made.append(dict(
-            key=key, graph=graph, seconds=time.perf_counter() - t0,
+            key=key, graph=graph, seconds=span["seconds"],
             **({"added_gib": (torch.cuda.memory_reserved() - reserved)
                 / 2**30} if graph else {})))
-        return out
 
     def tally(self):
         """(sweeps run, programs replayed, programs made) since the last

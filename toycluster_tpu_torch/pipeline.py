@@ -26,7 +26,7 @@ from .models import ids as ids_mod
 from .models import positions as pos_mod
 from .particles import halo_arrays_from_scene
 from .scene import build_scene
-from .utils.logging import stage_log
+from .utils.logging import Spans, profiler_ranges, stage_log
 from .utils.memory import reset_peak, stage_memory
 from .utils.profiling import profiler
 
@@ -63,7 +63,9 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
 
     On CUDA the positions, sph_quantities, magnetic_field, temperatures
     and velocities records carry the allocator's ``mem_gib`` and
-    ``peak_gib`` (the peak since this call began).
+    ``peak_gib`` (the peak since this call began).  The velocities
+    record carries the spans of each halo's tables and ``wvt_done`` those
+    of the WVT loop (``spans``: ``utils.logging.Spans``).
     """
     from .models.sph import check_engine
     check_engine(engine)
@@ -118,9 +120,10 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
 
     if not scene.dm_only:
         from .models import bfield, sph, temperature, wvt
-        prof = profiler(device) if profile_dir else contextlib.nullcontext()
+        prof, ranges = ((profiler(device), profiler_ranges()) if profile_dir
+                        else (contextlib.nullcontext(),) * 2)
         # the span of the WVT loop in a trace (``trace.WVT_SPAN``)
-        with prof, torch.profiler.record_function("wvt_loop"):
+        with prof, ranges, torch.profiler.record_function("wvt_loop"):
             if mesh is not None:
                 parts = _relax_sharded(mesh, scene, ha, parts, engine, log,
                                        wvt_checkpoint)
@@ -179,9 +182,10 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
         log("temperatures", **stage_memory(device))
 
     from .models import kinematics, velocities
-    parts = velocities.make_velocities(gen, scene, ha, parts)
+    spans = Spans()
+    parts = velocities.make_velocities(gen, scene, ha, parts, spans=spans)
     _barrier(device)
-    log("velocities", **stage_memory(device))
+    log("velocities", spans=spans.take(), **stage_memory(device))
     parts = kinematics.apply_kinematics(scene, parts)
     _barrier(device)
     log("kinematics")

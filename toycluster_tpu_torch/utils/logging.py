@@ -1,30 +1,39 @@
-"""Structured stage logging.
+"""Structured stage logging, and the spans carried on it.
 
 The reference's printf tables are its de-facto UX (unit.c:9-17,
 setup.c:117-142, wvt_relax.c:91-92); we reproduce the key stage reports
-through one logger that also records machine-readable metrics.
+through one logger.  A ``log=`` callable receives ``log(stage,
+**fields)`` at the end of each stage and stamps its own clock:
+``stage_log`` prints the record, ``Records`` keeps every record as a
+dict and can print it too.
 
-JAX counterpart: ``toycluster_tpu/utils/logging.py``, host-side NumPy
-without JAX, carried over unchanged so that both packages build
-identical scenes.
+JAX counterpart: ``toycluster_tpu/utils/logging.py`` (the tables are
+carried over unchanged, so that both packages print identical scenes).
+The port adds ``Spans``: named intervals on ``time.perf_counter``, the
+clock that the log's receivers stamp with, kept in memory while a stage
+runs and handed on as the list field ``spans`` of the record that
+closes the stage.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
+from collections import defaultdict
+
+import torch
 
 _T0 = time.perf_counter()
-METRICS: list = []
 
 
-def stage_log(stage: str, **kw):
-    t = time.perf_counter() - _T0
-    scene = kw.pop("scene", None)
-    rec = {"t": round(t, 3), "stage": stage, **{k: v for k, v in kw.items()
-                                                if _jsonable(v)}}
-    METRICS.append(rec)
+def _fields(kw):
+    return {k: v for k, v in kw.items() if k != "scene" and _jsonable(v)}
+
+
+def _say(t, stage, kw):
+    scene = kw.get("scene")
     msg = f"[{t:8.2f}s] {stage}"
     if scene is not None:
         msg += (f": nhalos={scene.nhalos} box={scene.boxsize:g} "
@@ -34,10 +43,41 @@ def stage_log(stage: str, **kw):
                     f"R200={h.r200:.1f} c={h.c_nfw:.3f} a={h.a_hernq:.1f} "
                     f"rc={h.rcore:.2f} rho0={h.rho0:g} bf500={h.bf_eff:.3f}")
     else:
-        extras = " ".join(f"{k}={v}" for k, v in kw.items())
+        extras = " ".join(f"{k}={span_summary(v) if k == 'spans' else v}"
+                          for k, v in kw.items())
         if extras:
             msg += ": " + extras
     print(msg, file=sys.stderr, flush=True)
+
+
+def stage_log(stage: str, **kw):
+    _say(time.perf_counter() - _T0, stage, kw)
+
+
+class Records(list):
+    """A ``log=`` callable that keeps each record, in order, as a dict of
+    ``t`` (seconds since this module was imported, as ``stage_log``
+    prints it), ``stage`` and the record's JSON-able fields; with
+    ``echo`` it also prints each one as ``stage_log`` does."""
+
+    def __init__(self, echo=False):
+        super().__init__()
+        self.echo = echo
+
+    def __call__(self, stage: str, **kw):
+        t = time.perf_counter() - _T0
+        self.append({"t": round(t, 3), "stage": stage, **_fields(kw)})
+        if self.echo:
+            _say(t, stage, kw)
+
+
+def span_summary(spans):
+    """{name: [count, seconds]} of a ``spans`` list, in first-seen order."""
+    out = defaultdict(lambda: [0, 0.0])
+    for s in spans:
+        out[s["name"]][0] += 1
+        out[s["name"]][1] += s["seconds"]
+    return {k: [n, round(sec, 6)] for k, (n, sec) in out.items()}
 
 
 def _jsonable(v):
@@ -50,6 +90,84 @@ def _jsonable(v):
 
 def silent_log(stage: str, **kw):
     pass
+
+
+# True inside ``profiler_ranges``
+_RANGES = [False]
+
+
+@contextlib.contextmanager
+def profiler_ranges():
+    """Inside the block, a span opened with ``profile`` (the default) also
+    opens a ``torch.profiler.record_function`` of its name while a
+    profiler runs, so that the trace shows it on its own timeline: the
+    traces of ``make_ics(profile_dir=)`` and ``python -m
+    toycluster_tpu_torch.trace``.  Any other profiler sees no span: with
+    the ranges on under the benchmark's CUDA profiler, the WVT loop's
+    program captures took 60% longer on an H100 and moved its traced
+    timings (PERF.md)."""
+    prev, _RANGES[0] = _RANGES[0], True
+    try:
+        yield
+    finally:
+        _RANGES[0] = prev
+
+
+class Spans:
+    """The spans of one stage, in the order they opened: each a dict of
+    ``name``, ``parent`` (the index of the enclosing open span in the same
+    list, -1 for a root), ``t0`` (``time.perf_counter`` at its start),
+    ``seconds`` and the caller's fields (``it``, ``attempt``, ``halo``,
+    ``kind``).  ``take`` hands the list to the record that closes the
+    stage.  A span costs two clock reads and an append, and a profiler
+    range inside ``profiler_ranges``."""
+
+    def __init__(self):
+        self.spans = []
+        self._open = []   # (index, record_function or None), innermost last
+
+    def open(self, name, profile=True, **fields):
+        """Open span ``name`` inside the innermost open one; returns its
+        dict (``close`` sets its ``seconds``)."""
+        rng = None
+        if profile and _RANGES[0] and torch.autograd._profiler_enabled():
+            rng = torch.profiler.record_function(name)
+            rng.__enter__()
+        rec = {"name": name,
+               "parent": self._open[-1][0] if self._open else -1, **fields}
+        self._open.append((len(self.spans), rng))
+        self.spans.append(rec)
+        rec["t0"] = time.perf_counter()
+        return rec
+
+    def close(self, rec):
+        """Close ``rec``, the innermost open span; returns its seconds."""
+        t = time.perf_counter()
+        i, rng = self._open.pop()
+        if self.spans[i] is not rec:
+            raise RuntimeError(f"span {rec['name']} closed inside "
+                               f"{self.spans[i]['name']}")
+        rec["seconds"] = t - rec["t0"]
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        return rec["seconds"]
+
+    @contextlib.contextmanager
+    def span(self, name, profile=True, **fields):
+        """``open`` ... ``close`` around a block; yields the span's dict."""
+        rec = self.open(name, profile, **fields)
+        try:
+            yield rec
+        finally:
+            self.close(rec)
+
+    def take(self):
+        """The spans so far (every one closed), and an empty list after."""
+        if self._open:
+            names = [self.spans[i]["name"] for i, _ in self._open]
+            raise RuntimeError(f"spans still open: {names}")
+        out, self.spans = self.spans, []
+        return out
 
 
 # -------------------------------------------------------------------------
