@@ -10,9 +10,10 @@ parent).
 
 1. Checks that CUDA is available and prints the card's name and power
    limit.
-2. Builds the five hand-written kernels (toycluster_tpu_torch/csrc/*.cu)
-   with nvcc for sm_90a, one nvcc process each, all started together,
-   and prints the build time and nvcc's register report.
+2. Builds the six hand-written kernels (toycluster_tpu_torch/csrc/*.cu:
+   the five pair kernels and the velocity stage's Eddington kernel) with
+   nvcc for sm_90a, one nvcc process each, all started together, and
+   prints the build time and nvcc's register report.
 3. Holds each kernel against its plain PyTorch version on the card on a
    1e5-gas synthetic cusp (toycluster_tpu_torch/ops/cusp.py), with the
    tolerances of the CPU tests: stream_wvt (wc6 and m4, with and without
@@ -41,9 +42,11 @@ parent).
    were launched (stream: stream_wvt and stream_curl; classed:
    solve_density and wvt_displacement over block lists and over the
    far-tail rows' superblock lists, fused_wvt and block-list
-   stream_curl, and no stream_wvt), that the neighbour contract fraction
-   is >= 0.999 and err_mean fell, and reads the snapshot back (1e6
-   particles, finite, rho/u/bfld nonzero on the gas).  Prints the
+   stream_curl, and no stream_wvt) and the Eddington kernel once (every
+   run of the script that counts launches checks that), that the
+   neighbour contract fraction is >= 0.999 and err_mean fell, and reads
+   the snapshot back (1e6 particles, finite, rho/u/bfld nonzero on the
+   gas).  Prints the
    per-stage wall times and the WVT particle updates per second of each
    run.
 5. Drives the config-4 scene (configs/run_configs.py:29-30 as overrides
@@ -114,7 +117,14 @@ parent).
    fused_wvt walked and one displacement pass over fused_wvt's
    displacement tiles, the sweeps the kernel took, and the periodic wrap
    only on the rows whose reach leaves the box).  fused_wvt is also timed
-   without its frozen-lane skip and without its warp tiles.
+   without its frozen-lane skip and without its warp tiles.  The
+   Eddington kernel is held against its plain version on the inputs of
+   its call in step 5's first run (config 4 at Ntotal 1e7, every halo's
+   knots and energies stacked): each energy within 1e-12 of its terms
+   summed in magnitude, the same knots summed, a rerun bit-identical;
+   both are timed with CUDA events, and its bound is the larger of its
+   fp64 operations (OPS_EDDINGTON a term below its energy) over the
+   card's fp64 peak and its bytes over the HBM peak.
 
 8. The sharded path (``toycluster_tpu_torch/parallel/``), through
    ``make_ics(mesh=..., check=True)`` with the ranks started by
@@ -170,7 +180,7 @@ parent).
    baryon_fraction=0.  Every run must launch its engine's displacement
    kernel, stream_curl exactly when it has a B field, the far-tail
    records when a WVT build had far-tail rows, no stream_wvt on the
-   classed engine and, without gas, no kernel at all; the DM-only
+   classed engine and, without gas, no pair kernel; the DM-only
    snapshot holds no gas and finite, nonzero DM speeds.
 10. Speculative dispatch of the WVT loop: the 1e6 par on both engines and
    config 4 at Ntotal 5e6 (stream engine), each with TOYCLUSTER_SPECULATE
@@ -256,9 +266,15 @@ KERNELS = (
 )
 LIBS = ("stream_wvt", "stream_curl", "solve_density", "wvt_displacement",
         "fused_wvt")
+# the velocity stage's kernel: every halo's f(E) integral in float64 (record
+# name, kernel library, the JAX package's host function it takes over; it
+# replaces no TPU kernel)
+EDDINGTON = ("eddington_integral", "eddington",
+             "toycluster_tpu/models/eddington.py:61")
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): fp32 outside the tensor cores, and HBM3.
+# sheet): fp32 and fp64 outside the tensor cores, and HBM3.
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 PEAK_HBM = 3.35e12
 PAIRS = 128 * 128       # pairs of one receiver block and one source block
 TILE_PAIRS = 32 * 32    # pairs of one warp tile, 16 a block
@@ -272,15 +288,21 @@ OPS_DIST, OPS_WRAP = 8, 12
 OPS_DENS = {"wc6": 1, "m4": 2}  # r2 / h^2; M4: sqrt and r / h
 OPS_UNION = 7                   # rsqrt, max, r, r / h, hbar (2), hbar^2
 OPS_DISP = 6                    # to box units (3), hbar (2), hbar^2
+# fp64 operations of one Eddington term below its E (csrc/eddington.cu):
+# E - x_k, sqrt (as one), s * sqrt(s), the product with d_k, the sum
+OPS_EDDINGTON = 5
 # what a check may measure besides the contract's keys: stream_wvt
 # without hoisting, the parent's kernel, a kernel without pruning and
 # hoisting, on one CTA a row, fused_wvt without the frozen-lane skip and
 # without the warp tiles; the blocks kept of those listed, the blocks
-# walked of listed x sweeps, the tiles walked of 16 x the blocks walked
+# walked of listed x sweeps, the tiles walked of 16 x the blocks walked;
+# the Eddington kernel's error over each energy's terms in magnitude
 EXTRA_KEYS = ("ms_unhoisted", "parent_ms", "ms_unpruned", "ms_cluster1",
               "cluster", "kept_over_listed", "walked_over_listed",
-              "tiles_over_walked", "ms_no_skip", "ms_no_tiles")
-# the config-4 scenes of step 5: (engine, ntotal, SLOW_SUBSTRUCTURE)
+              "tiles_over_walked", "ms_no_skip", "ms_no_tiles",
+              "err_over_magnitude")
+# the config-4 scenes of step 5: (engine, ntotal, SLOW_SUBSTRUCTURE); the
+# first, at the benchmark's size, gives step 7 the Eddington kernel's inputs
 SUBSTRUCTURE_RUNS = (("stream", 10_000_000, False),
                      ("classed", 1_000_000, True))
 # step 6: the config-4 preset at config 5's size (stream engine), and the
@@ -288,15 +310,16 @@ SUBSTRUCTURE_RUNS = (("stream", 10_000_000, False),
 LARGE_NTOTAL = 100_000_000
 RESUME_NTOTAL = 10_000_000
 # the per-halo work of a substructure scene, by module and function:
-# Python loops over the halos (some 8 small device ops a halo) and host
-# tables built one a halo; a second run of each config-4 scene times
-# every call
+# Python loops over the halos (some 8 small device ops a halo), host
+# tables built one a halo and the velocity tables of every halo (host
+# splines a halo, one integral call); a second run of each config-4
+# scene times every call
 HALO_LOOPS = (("positions", "halo_containing_gas"),
               ("positions", "halo_containing_dm"),
               ("sph", "global_density_model"),
               ("bfield", "set_vector_potential"),
               ("temperature", "build_energy_tables_stacked"),
-              ("velocities", "build_velocity_tables"),
+              ("velocities", "velocity_tables"),
               ("velocities", "gas_bulk_velocities"))
 # the kernel records of the classed main path
 CLASSED_NAMES = ("solve_density", "solve_density_sb", "wvt_displacement",
@@ -565,6 +588,7 @@ class ParentKernels:
     def __init__(self, sp, csrc):
         from toycluster_tpu_torch.ops import cuda_build
         self.sp, names = sp, ("fused_wvt", "stream_curl")
+        self.call = cuda_build._call
         cuda_build.build(names, Path(csrc))
         self.fn = {n: getattr(cuda_build.load(n, Path(csrc)), f"{n}_launch")
                    for n in names}
@@ -591,7 +615,7 @@ class ParentKernels:
         pos, hm_blocks, cand, cnt, xi, h0, cap, hm_i, mpart, box = args
         out = torch.empty((cand.shape[0], 128, 8), dtype=torch.float32,
                           device=cand.device)
-        self.sp._call(self.fn["fused_wvt"], "parent fused_wvt", [
+        self.call(self.fn["fused_wvt"], "parent fused_wvt", [
             pos, hm_blocks, cand, cnt, xi, h0, cap, hm_i, gdist, dkeep, out,
             cand.shape[0], cand.shape[1], pos.shape[0],
             self.sp._KIND[full["kernel"]], bool(full["sb_mode"]),
@@ -605,7 +629,7 @@ class ParentKernels:
         sb_mode = bool(kw.get("sb_mode"))
         out = torch.empty((cand.shape[0], 128, 3), dtype=torch.float32,
                           device=cand.device)
-        self.sp._call(self.fn["stream_curl"], "parent stream_curl", [
+        self.call(self.fn["stream_curl"], "parent stream_curl", [
             self.sp._pad_superblocks(src) if sb_mode else src, cand, cnt, xi,
             hsml, wfac, apot, out, cand.shape[0], cand.shape[1],
             src.shape[0], self.sp._KIND[kw["kernel"]], sb_mode, float(box)])
@@ -1066,8 +1090,9 @@ def run_log():
 
 
 def counted(torch, sp, cp, drive, record=True):
-    """``drive()`` with every launch counter and the stage log's records
-    set to 0 just before; the kernel wrappers are patched by name to
+    """``drive()`` with every launch counter (``_kernel_fns``) and the
+    stage log's records set to 0 just before; the kernel wrappers (the
+    velocity stage's Eddington kernel's too) are patched by name to
     record each kernel's first call's inputs for step 7 (the stream
     engine's stand-alone density solve, do_disp=False, is not recorded;
     with ``record=False``, which keeps a large run's inputs from
@@ -1081,7 +1106,8 @@ def counted(torch, sp, cp, drive, record=True):
     of an eager call.  Returns (drive's result, launches by record
     name, launches by kernel, recorded inputs (or, by record name, the
     device ms and list shape of each call), wall s, start time)."""
-    from toycluster_tpu_torch.models import bfield, sph, wvt
+    from toycluster_tpu_torch.models import bfield, sph, velocities, wvt
+    from toycluster_tpu_torch.ops import eddington as ed
 
     recorded, by_name = {}, Counter()
 
@@ -1103,9 +1129,11 @@ def counted(torch, sp, cp, drive, record=True):
                         k: v for k, v in kw.items() if k != "stats"}))
                 else:
                     # the call's (rows, width): its first int32 matrix
-                    shape = next(tuple(a.shape) for a in args
-                                 if torch.is_tensor(a) and a.ndim == 2
-                                 and a.dtype == torch.int32)
+                    # (the Eddington kernel's: its knots, (halos, knots))
+                    shape = next((tuple(a.shape) for a in args
+                                  if torch.is_tensor(a) and a.ndim == 2
+                                  and a.dtype == torch.int32),
+                                 tuple(args[0].shape))
                     ev[1].record()
                     recorded.setdefault(name, []).append((ev, shape))
             return out
@@ -1125,13 +1153,14 @@ def counted(torch, sp, cp, drive, record=True):
             cp.wvt_displacement, lambda kw: row_name("wvt_displacement",
                                                      kw))),
         (wvt, "fused_wvt", recorder(cp.fused_wvt, lambda kw: "fused_wvt")),
+        (velocities, "eddington_integral", recorder(
+            ed.eddington_integral, lambda kw: EDDINGTON[0])),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, fn in patches:
         setattr(mod, attr, fn)
     run_log().clear()
-    kernels = (sp.stream_wvt, sp.stream_curl, cp.solve_density,
-               cp.wvt_displacement, cp.fused_wvt)
+    kernels = _kernel_fns()
     for k in kernels:
         k.launches = 0
     wvt.REPLAYED_LAUNCHES.clear()
@@ -1305,6 +1334,68 @@ def first_call_stats(torch, sp, cp, tag, recorded):
             f", walked over all sweeps {quantiles(torch, st[:, 3])}")
 
 
+def eddington_once(what, launches):
+    """Fail unless ``what`` (one make_ics) launched the Eddington kernel
+    once: the velocity stage's one integral call for all halos."""
+    n = launches[EDDINGTON[0]]
+    if n != 1:
+        fail(f"{what} launched {EDDINGTON[0]} {n} times, not once")
+
+
+def check_eddington(torch, call):
+    """Step 7's check of the Eddington kernel on the inputs of its call
+    in the first config-4 run of step 5 (every halo's knots, m2 and
+    energies, stacked): against its plain version on the card on the
+    same tensors, each energy within 1e-12 of its terms summed in
+    magnitude and the same knots summed, a rerun bit-identical; both
+    timed with CUDA events, and the bound: the larger of the fp64
+    operations of the terms below their energies over the card's fp64
+    peak and the bytes read and written once over the HBM peak."""
+    from toycluster_tpu_torch.ops import eddington as ed
+    (x, m2, E), _ = call
+    got, terms = ed.eddington_integral(x, m2, E)
+    again, again_terms = ed.eddington_integral(x, m2, E)
+    if not (torch.equal(got, again) and torch.equal(terms, again_terms)):
+        fail("eddington_integral: a rerun differs")
+    ref, ref_terms = ed._eddington_integral_reference(x, m2, E)
+    if not torch.equal(terms, ref_terms):
+        fail("eddington_integral: the knots summed differ from the plain "
+             "version's")
+    # each energy's terms summed in magnitude: 2 |m2_0| sqrt((E - x_0)_+)
+    # + 4/3 sum_k |d_k| ((E - x_k)_+)^(3/2)
+    mag = []
+    for xh, mh, eh in zip(x, m2, E):
+        c1 = torch.diff(mh) / torch.diff(xh)
+        d = torch.cat([c1[:1], torch.diff(c1)])
+        s = torch.clamp(eh[:, None] - xh[None, :-1], min=0.0)
+        mag.append(2.0 * mh[0].abs() * torch.sqrt(
+            torch.clamp(eh - xh[0], min=0.0))
+            + (4.0 / 3.0) * ((s * torch.sqrt(s)) @ d.abs()))
+    diff = (got - ref).abs()
+    rel = float((diff / torch.stack(mag).clamp(min=1e-300)).max())
+    if not rel <= 1e-12:
+        fail(f"eddington_integral: {rel:.6g} of the terms summed in "
+             f"magnitude from the plain version, above 1e-12")
+    ms = event_ms(torch, lambda: ed.eddington_integral(x, m2, E), 20)
+    plain_ms = event_ms(
+        torch, lambda: ed._eddington_integral_reference(x, m2, E), 5)
+    n_terms = int(terms.sum(dtype=torch.int64))
+    t_ops = n_terms * OPS_EDDINGTON / PEAK_FP64
+    t_bytes = nbytes(x, m2, E, got, terms) / PEAK_HBM
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    say(f"eddington_integral: halos={x.shape[0]} knots={x.shape[1]} "
+        f"energies={E.shape[1]} terms={n_terms} max_abs_err="
+        f"{float(diff.max()):.6g} err_over_magnitude={rel:.6g} "
+        f"kernel_ms={ms:.6g} plain_ms={plain_ms:.6g} bound_ms="
+        f"{bound_ms:.6g} ({'operations' if t_ops >= t_bytes else 'bytes'})")
+    if bound_ms > ms:
+        fail(f"eddington_integral: bound {bound_ms} ms above the kernel's "
+             f"{ms} ms")
+    return dict(err=float(diff.max()), err_over_magnitude=rel, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def run_main_path(torch, sp, cp, tmp, engine):
     """The CLI main path on cuda with ``engine``, counted (``counted``).
     Returns (launches, recorded)."""
@@ -1324,6 +1415,7 @@ def run_main_path(torch, sp, cp, tmp, engine):
             fail(f"the {engine} main path launched {name} no time")
     if engine == "classed" and launches["stream_wvt"] != 0:
         fail("the classed main path launched stream_wvt")
+    eddington_once(f"the {engine} main path", launches)
     say(f"main path engine={engine}: wall {wall:.3f} s, launches "
         f"{launches}")
     report_run(engine, t0)
@@ -1372,6 +1464,7 @@ def check_config4(torch, tag, cfg, engine, scene, parts, totals, t0,
             fail(f"the {tag} run launched {name} no time")
     if engine == "classed" and totals["stream_wvt"] != 0:
         fail(f"the {tag} run launched stream_wvt")
+    eddington_once(f"the {tag} run", totals)
     recs = report_run(tag, t0, fell)
     audit = [r for r in recs if r["stage"] == "check_density"]
     if not audit or not audit[0].get("worst_rel_err", 1.0) <= 5e-3:
@@ -1404,7 +1497,8 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     snapshot must read back.  A second run of the same scene, without
     the audit and the snapshot, times every call of the per-halo
     functions (``timed_halo_loops``) for their share of each stage.
-    Returns the first run's err_mean trajectory."""
+    Returns the first run's err_mean trajectory and its Eddington call's
+    inputs."""
     from toycluster_tpu_torch.pipeline import make_ics
     tag = f"config-4 {ntotal:.0e} {engine}"
     out = Path(tmp) / f"IC_sub_{engine}"
@@ -1421,6 +1515,7 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
         f"{launches}")
     recs = check_config4(torch, tag, cfg, engine, scene, parts, totals, t0)
     first_call_stats(torch, sp, cp, tag, recorded)
+    eddington_call = recorded[EDDINGTON[0]]
     del recorded
     say(f"[{tag}] peak device memory {peak / 2**30:.4f} GiB "
         f"({mem0 / 2**30:.4f} GiB held before the run)")
@@ -1445,7 +1540,8 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     say(f"[{tag}] instrumented run (every per-halo call synchronised): "
         f"wall {wall:.3f} s")
     report_halo_loops(f"{tag} instrumented", book, list(run_log()), t0)
-    return [r["err_mean"] for r in recs if r["stage"] == "wvt"]
+    return [r["err_mean"] for r in recs if r["stage"] == "wvt"], \
+        eddington_call
 
 
 def read_checkpoint(path):
@@ -1894,9 +1990,10 @@ E_MAX_CAND = 4096
 
 def _kernel_fns():
     from toycluster_tpu_torch.ops import class_pair as cp
+    from toycluster_tpu_torch.ops import eddington as ed
     from toycluster_tpu_torch.ops import stream_pair as sp
     return (sp.stream_wvt, sp.stream_curl, cp.solve_density,
-            cp.wvt_displacement, cp.fused_wvt)
+            cp.wvt_displacement, cp.fused_wvt, ed.eddington_integral)
 
 
 def _launch_counts():
@@ -2410,10 +2507,12 @@ def path_kernels(tag, engine, cfg, launches, recs):
     there is a B field (superblock lists on the stream engine, block
     lists on the classed one), the far-tail records of solve_density and
     wvt_displacement when a WVT build had far-tail rows, and no
-    stream_wvt on the classed engine."""
+    stream_wvt on the classed engine; with or without gas the Eddington
+    kernel once."""
     gas = cfg.baryon_fraction > 0
     curl = "stream_curl" if engine == "stream" else "stream_curl_blocks"
-    launched = {k for k, v in launches.items() if v > 0}
+    eddington_once(tag, launches)
+    launched = {k for k, v in launches.items() if v > 0} - {EDDINGTON[0]}
     if not gas:
         if launched:
             fail(f"{tag}: a run without gas launched {sorted(launched)}")
@@ -2490,7 +2589,7 @@ def run_variant(torch, sp, cp, tmp, tag, engine, tokens, par_lines=()):
     ``tokens`` on the repository's par with ``par_lines`` added, counted
     (``counted``): with gas step 4's checks (``report_run``: the
     contract, the fall of err_mean; the snapshot) and ``path_kernels``;
-    without gas no kernel launched, no gas in the snapshot, the header's
+    without gas no pair kernel launched, no gas in the snapshot, the header's
     masses and box, the DM speeds finite and nonzero.  Returns
     (launches, recorded)."""
     import numpy as np
@@ -2977,10 +3076,11 @@ def main():
     from toycluster_tpu_torch.ops import cuda_build
     from toycluster_tpu_torch.ops import stream_pair as sp
     t0 = time.perf_counter()
-    cuda_build.build(LIBS)
-    say(f"build of {len(LIBS)} kernels (parallel nvcc): "
+    libs = LIBS + (EDDINGTON[1],)
+    cuda_build.build(libs)
+    say(f"build of {len(libs)} kernels (parallel nvcc): "
         f"{time.perf_counter() - t0:.3f} s")
-    for name in LIBS:
+    for name in libs:
         cuda_build.load(name)
         for line in cuda_build.build_log.get(name, "").splitlines():
             # the mangled name tells the instantiations apart (<kind,
@@ -3000,7 +3100,8 @@ def main():
 
     launches, recorded = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for engine, names in (("stream", ("stream_wvt", "stream_curl")),
+        for engine, names in (("stream", ("stream_wvt", "stream_curl",
+                                          EDDINGTON[0])),
                               ("classed", CLASSED_NAMES)):
             run_launches, run_recorded = run_main_path(torch, sp, cp, tmp,
                                                        engine)
@@ -3010,10 +3111,11 @@ def main():
                     fail(f"no {name} call was recorded")
                 recorded[name] = run_recorded[name]
             t0 = phase(f"1e6 main path, engine={engine}", t0)
-        single_card_errs = {}
+        single_card_errs, eddington_calls = {}, []
         for engine, ntotal, slow in SUBSTRUCTURE_RUNS:
-            single_card_errs[engine, ntotal] = run_substructure(
+            single_card_errs[engine, ntotal], call = run_substructure(
                 torch, sp, cp, tmp, engine, ntotal, slow)
+            eddington_calls.append(call)
             t0 = phase(f"config-4 {ntotal:.0e}, engine={engine}", t0)
         _, first = run_large(torch, sp, cp, tmp, "stream")
         t0 = phase(f"A: config-4 {LARGE_NTOTAL:.0e}, engine=stream", t0)
@@ -3044,6 +3146,7 @@ def main():
         say(f"build of the parent's fused_wvt and stream_curl "
             f"({opts.parent_csrc}): {time.perf_counter() - t0:.3f} s")
     res = time_on_main_path_inputs(torch, sp, cp, recorded, parent)
+    res[EDDINGTON[0]] = check_eddington(torch, eddington_calls[0])
     phase("kernels on main-path inputs", t0)
     # no single PyTorch call computes a per-lane h solve or an SPH pair
     # sum over candidate lists: library_ms is null for every kernel
@@ -3054,7 +3157,7 @@ def main():
          "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None}
-        for name, lib, rep in KERNELS]}
+        for name, lib, rep in KERNELS + (EDDINGTON,)]}
     # what a check measured besides (EXTRA_KEYS); each record's launches
     # in step 8's sharded loops and in its sharded stages (E), summed over
     # runs and ranks; on the records of the sharded loop's first calls,

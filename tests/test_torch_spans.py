@@ -28,7 +28,7 @@ ENGINES = ("stream", "classed")
 # spans that no record is named after
 SPAN_ONLY = ("wvt_loop", "wvt_iteration", "wvt_sweep", "wvt_capture",
              "wvt_step", "wvt_wait", "wvt_release", "velocity_table",
-             "velocity_fE", "velocity_cdf")
+             "velocity_fE", "velocity_fE_integral", "velocity_cdf")
 WVT_NAMES = {"wvt_loop", "wvt_iteration", "wvt_build", "wvt_refresh",
              "wvt_sweep", "wvt_capture", "wvt_step", "wvt_wait",
              "wvt_release"}
@@ -63,6 +63,7 @@ def test_velocities_and_wvt_done_carry_spans(run):
     vel = _spans(run, "velocities")
     loop = _spans(run, "wvt_done")
     assert {s["name"] for s in vel} == {"velocity_table", "velocity_fE",
+                                        "velocity_fE_integral",
                                         "velocity_cdf"}
     assert {s["name"] for s in loop} >= {"wvt_loop", "wvt_iteration",
                                          "wvt_build", "wvt_sweep",
@@ -93,17 +94,21 @@ def test_every_span_lies_inside_its_parent_and_the_call(run, stage):
 
 
 def test_one_velocity_table_a_halo(run):
+    """One ``velocity_table`` span over every halo's tables: the host
+    prepare, the one integral call (its ``halos`` and the ``terms`` it
+    summed), the host finish, then the speed CDFs."""
     spans = _spans(run, "velocities")
+    n_halos = run["scene"].nhalos
+    assert n_halos == 3
     tables = [s for s in spans if s["name"] == "velocity_table"]
-    assert run["scene"].nhalos == 3
-    assert [s["halo"] for s in tables] == list(range(run["scene"].nhalos))
-    assert all(s["parent"] == -1 for s in tables)
-    for i, s in enumerate(spans):
-        if s["name"] != "velocity_table":
-            assert spans[s["parent"]]["name"] == "velocity_table"
-    kids = [[s["name"] for s in spans if s["parent"] == i]
-            for i, t in enumerate(spans) if t["name"] == "velocity_table"]
-    assert kids == [["velocity_fE", "velocity_cdf"]] * 3
+    assert len(tables) == 1 and tables[0]["halos"] == n_halos
+    assert spans[0] is tables[0] and tables[0]["parent"] == -1
+    kids = [(s["name"], s.get("part")) for s in spans[1:]]
+    assert kids == [("velocity_fE", "prepare"), ("velocity_fE_integral", None),
+                    ("velocity_fE", "finish"), ("velocity_cdf", None)]
+    assert all(s["parent"] == 0 for s in spans[1:])
+    integral = spans[2]
+    assert integral["halos"] == n_halos and integral["terms"] > 0
 
 
 def test_the_wvt_spans_nest_as_the_loop_runs(run):

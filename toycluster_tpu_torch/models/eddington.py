@@ -12,6 +12,12 @@ integral with adaptive QAGS.  Since the spline's second derivative is
 piecewise *linear* in psi, the integral has a closed form per knot segment —
 we integrate it exactly instead, then build the same 1024-point f(E) table.
 
+``build_distribution_function`` is ``prepare_distribution_function``
+(the potential, the rho(psi) spline, the E grid), the integral in NumPy
+and ``finish_distribution_function`` (the f(E) spline); the velocity
+stage (models/velocities.py) runs the first and last a halo at a time
+and the integrals of all halos in one device call (ops/eddington.py).
+
 JAX counterpart: ``toycluster_tpu/models/eddington.py``, host-side NumPy
 without JAX, carried over unchanged so that both packages build
 identical scenes.
@@ -92,11 +98,24 @@ def _exact_eddington_integral(psi_knots, m2, E_values):
             + (4.0 / 3.0) * ((s * np.sqrt(s)) @ d))
 
 
-def build_distribution_function(*, mass_dm, a_hernq, G,
-                                mass_table: MassTable | None,
-                                r_sample_gas: float | None,
-                                has_gas: bool) -> DistributionFunction:
-    """calc_distribution_function_table (velocities.c:186-304)."""
+@dataclass(frozen=True)
+class EddingtonInputs:
+    """One halo's inputs to the Eddington integral: the ascending-psi
+    knots ``x`` (NSAMPLE,) and the rho(psi) spline's second derivatives
+    ``m2`` there, the E grid ``E`` (NTABLE,) (psi on a log-r grid, so
+    descending), and the potential."""
+    x: np.ndarray
+    m2: np.ndarray
+    E: np.ndarray
+    psi: PotentialProfile
+
+
+def prepare_distribution_function(*, mass_dm, a_hernq, G,
+                                  mass_table: MassTable | None,
+                                  r_sample_gas: float | None,
+                                  has_gas: bool) -> EddingtonInputs:
+    """The potential, the rho(psi) spline and the E grid of
+    calc_distribution_function_table (velocities.c:186-247)."""
     gas_pot = None
     if has_gas and mass_table is not None:
         gas_pot = build_potential_table(mass_table, G, r_sample_gas)
@@ -118,10 +137,18 @@ def build_distribution_function(*, mass_dm, a_hernq, G,
     # E grid: E_i = psi(r_i) on a 1024-point log-r grid (velocities.c:236-247)
     rstep = np.log10(INFINITY_R / RMIN) / NTABLE
     rE = RMIN * 10.0 ** (rstep * np.arange(NTABLE))
-    E = psi_prof(rE)
+    return EddingtonInputs(x=x, m2=rho_spline.m2, E=psi_prof(rE),
+                           psi=psi_prof)
 
-    fE = _exact_eddington_integral(x, rho_spline.m2, E)
+
+def finish_distribution_function(inp: EddingtonInputs, integral
+                                 ) -> DistributionFunction:
+    """f(E) from the Eddington integral (NTABLE,) on ``inp.E``: the
+    normalisation, the endpoint fixes and the ascending-E spline
+    (velocities.c:249-304).  ``integral`` is overwritten."""
+    fE = integral
     fE /= np.sqrt(8.0) * const.PI ** 2
+    E = inp.E.copy()
 
     fE[0] = fE[1]          # avoid the r=0 singularity (velocities.c:259)
     E[-1] = 0.0            # r -> inf (velocities.c:261-262)
@@ -130,4 +157,17 @@ def build_distribution_function(*, mass_dm, a_hernq, G,
     # ascending-E spline (velocities.c:273-287)
     spline = NaturalSpline.build(E[::-1].copy(), fE[::-1].copy())
     return DistributionFunction(E=E[::-1].copy(), fE=fE[::-1].copy(),
-                                spline=spline, psi=psi_prof)
+                                spline=spline, psi=inp.psi)
+
+
+def build_distribution_function(*, mass_dm, a_hernq, G,
+                                mass_table: MassTable | None,
+                                r_sample_gas: float | None,
+                                has_gas: bool) -> DistributionFunction:
+    """calc_distribution_function_table (velocities.c:186-304), the
+    integral in NumPy."""
+    inp = prepare_distribution_function(
+        mass_dm=mass_dm, a_hernq=a_hernq, G=G, mass_table=mass_table,
+        r_sample_gas=r_sample_gas, has_gas=has_gas)
+    return finish_distribution_function(
+        inp, _exact_eddington_integral(inp.x, inp.m2, inp.E))

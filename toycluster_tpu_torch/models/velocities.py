@@ -2,11 +2,14 @@
 bulk velocities (reference velocities.c:38-159).
 
 JAX counterpart: ``toycluster_tpu/models/velocities.py`` (the batched
-all-halo sampler).  The f(E) and potential tables are built on the host
-in float64 (models/eddington.py).  The reference rejection-samples
-p(v) ~ v^2 f(psi(r) - v^2/2) per particle with up to 90,000 draws
-(velocities.c:62-95); here the same distribution is drawn by inverting
-its CDF, tabulated per halo on a log-r grid, one lookup per particle.
+all-halo sampler).  The f(E) and potential tables are built in float64:
+each halo's potential and splines on the host (models/eddington.py),
+the Eddington integrals of all halos in one device call
+(ops/eddington.py; JAX runs them on the host, a halo at a time).  The
+reference rejection-samples p(v) ~ v^2 f(psi(r) - v^2/2) per particle
+with up to 90,000 draws (velocities.c:62-95); here the same
+distribution is drawn by inverting its CDF, tabulated per halo on a
+log-r grid, one lookup per particle.
 Rows whose f(E) integrates to zero give v = 0 (the reference's
 fallback, velocities.c:94).
 """
@@ -19,12 +22,15 @@ import numpy as np
 import torch
 
 from .. import constants as const
+from ..ops.eddington import eddington_integral
 from ..ops.interp import SplineTable, batched_spline_eval, spline_eval
 from ..ops.kernels import wc2
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
 from ..utils.logging import Spans
-from .eddington import NTABLE, RMIN, build_distribution_function
+from .eddington import (NTABLE, RMIN, build_distribution_function,
+                        finish_distribution_function,
+                        prepare_distribution_function)
 from .positions import sphere_dirs, uniform
 
 VTAB_V = 256   # speed nodes per CDF row
@@ -43,31 +49,69 @@ class VelocityTables(NamedTuple):
     G: torch.Tensor
 
 
+def velocity_tables(scene: Scene, device, halos=None,
+                    spans=None) -> VelocityTables:
+    """The f(E) and potential tables of ``halos`` (default every halo of
+    the scene), stacked (H, ...).  Each halo's potential, rho(psi) spline
+    and E grid are built on the host (a ``velocity_fE`` span of ``spans``
+    with ``part`` "prepare"), the Eddington integrals of all of them in
+    one call on ``device`` (``ops/eddington.py``; a
+    ``velocity_fE_integral`` span with ``halos`` and ``terms``, the
+    knot-energy pairs it summed), then each f(E) spline on the host
+    (``velocity_fE``, ``part`` "finish") and one copy a field."""
+    spans = Spans() if spans is None else spans
+    hs = [scene.halos[i] for i in
+          (range(scene.nhalos) if halos is None else halos)]
+    with spans.span("velocity_fE", part="prepare"):
+        inps = [prepare_distribution_function(
+            mass_dm=h.mass_dm, a_hernq=h.a_hernq, G=scene.units.G,
+            mass_table=h.mass_table, r_sample_gas=h.r_sample_gas,
+            has_gas=h.npart_gas > 0) for h in hs]
+    with spans.span("velocity_fE_integral", halos=len(hs)) as rec:
+        I, terms = eddington_integral(*(
+            torch.as_tensor(np.stack([getattr(p, k) for p in inps]),
+                            dtype=torch.float64, device=device)
+            for k in ("x", "m2", "E")))
+        I = I.cpu().numpy()
+        rec["terms"] = int(terms.sum(dtype=torch.int64))
+    with spans.span("velocity_fE", part="finish"):
+        dfs = [finish_distribution_function(p, row)
+               for p, row in zip(inps, I)]
+        # the gas potential's spline, psi(r_max) and r_max (zeros if no
+        # gas)
+        no_gas = (np.linspace(0.0, 1.0, NTABLE), np.zeros(NTABLE),
+                  np.zeros(NTABLE), 0.0, 1.0)
+        gas = [no_gas if g is None else
+               (g.spline.x, g.spline.y, g.spline.m2, g.psi_rmax, g.r_max)
+               for g in (df.psi.gas for df in dfs)]
+
+        def t(values):
+            """(H, ...) float32 on the device from the halos' values."""
+            return torch.as_tensor(np.array(list(values), np.float64),
+                                   dtype=torch.float32, device=device)
+
+        return VelocityTables(
+            fE=SplineTable(*(t(getattr(df.spline, k) for df in dfs)
+                             for k in ("x", "y", "m2"))),
+            psi_gas=SplineTable(*(t(g[k] for g in gas) for k in range(3))),
+            has_gas=torch.tensor([df.psi.gas is not None for df in dfs],
+                                 device=device),
+            psi_rmax=t(g[3] for g in gas), r_max=t(g[4] for g in gas),
+            a_hernq=t(h.a_hernq for h in hs),
+            mass_dm=t(h.mass_dm for h in hs),
+            G=t(scene.units.G for _ in hs))
+
+
+def halo_tables(vt: VelocityTables, i: int) -> VelocityTables:
+    """Halo ``i``'s row of stacked tables."""
+    return VelocityTables(*(SplineTable(*(p[i] for p in f))
+                            if isinstance(f, SplineTable) else f[i]
+                            for f in vt))
+
+
 def build_velocity_tables(scene: Scene, i: int, device) -> VelocityTables:
-    h = scene.halos[i]
-    df = build_distribution_function(
-        mass_dm=h.mass_dm, a_hernq=h.a_hernq, G=scene.units.G,
-        mass_table=h.mass_table, r_sample_gas=h.r_sample_gas,
-        has_gas=h.npart_gas > 0)
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float64),
-                               dtype=torch.float32, device=device)
-
-    if df.psi.gas is not None:
-        sp = df.psi.gas.spline
-        psi_gas = SplineTable(t(sp.x), t(sp.y), t(sp.m2))
-        psi_rmax, r_max = t(df.psi.gas.psi_rmax), t(df.psi.gas.r_max)
-    else:
-        z = t(np.zeros(NTABLE))
-        psi_gas = SplineTable(t(np.linspace(0.0, 1.0, NTABLE)), z, z)
-        psi_rmax, r_max = t(0.0), t(1.0)
-    return VelocityTables(
-        fE=SplineTable(t(df.spline.x), t(df.spline.y), t(df.spline.m2)),
-        psi_gas=psi_gas,
-        has_gas=torch.tensor(df.psi.gas is not None, device=device),
-        psi_rmax=psi_rmax, r_max=r_max, a_hernq=t(h.a_hernq),
-        mass_dm=t(h.mass_dm), G=t(scene.units.G))
+    """One halo's tables: ``velocity_tables`` of halo ``i`` alone."""
+    return halo_tables(velocity_tables(scene, device, [i]), 0)
 
 
 def potential(vt: VelocityTables, r):
@@ -129,21 +173,13 @@ def _invert_cdf_rows(cdf, rows, uu):
     return (lo + frac) / (VTAB_V - 1)
 
 
-def _stack_tables(vts):
-    def stack(*xs):
-        if isinstance(xs[0], SplineTable):
-            return SplineTable(*(torch.stack(p) for p in zip(*xs)))
-        return torch.stack(xs)
-    return VelocityTables(*(stack(*field) for field in zip(*vts)))
-
-
 def sample_dm_velocities(gen, scene, ha, parts, bulk, spans=None):
     """All-halo DM velocities: inverse-CDF speed from the particle's halo
     rows, bounded by the exact per-particle escape speed, an isotropic
-    direction, plus the halo bulk velocity.  Each halo's tables are a
+    direction, plus the halo bulk velocity.  The tables are one
     ``velocity_table`` span of ``spans`` (a ``utils.logging.Spans``) with
-    its ``halo``, over a ``velocity_fE`` span (the host f(E) and
-    potential tables) and a ``velocity_cdf`` span (the speed CDFs)."""
+    ``halos``, over ``velocity_tables``' spans and a ``velocity_cdf``
+    span (the speed CDFs, a halo at a time)."""
     spans = Spans() if spans is None else spans
     n_gas = scene.npart_gas
     n_halos = scene.nhalos
@@ -155,16 +191,14 @@ def sample_dm_velocities(gen, scene, ha, parts, bulk, spans=None):
     r_his = r_his.scatter_reduce(0, halo, r, reduce="amax")
     r_his = torch.clamp(r_his, min=RMIN * 2.0)
 
-    vts, tabs = [], []
-    for i, rh in enumerate(r_his.tolist()):
-        with spans.span("velocity_table", halo=i):
-            with spans.span("velocity_fE"):
-                vts.append(build_velocity_tables(scene, i, dev))
-            with spans.span("velocity_cdf"):
-                tabs.append(speed_cdf_table(vts[-1], RMIN, float(rh)))
+    r_hi = r_his.tolist()
+    with spans.span("velocity_table", halos=n_halos):
+        vt = velocity_tables(scene, dev, spans=spans)
+        with spans.span("velocity_cdf"):
+            tabs = [speed_cdf_table(halo_tables(vt, i), RMIN, rh)
+                    for i, rh in enumerate(r_hi)]
     cdf = torch.cat([c for c, _ in tabs])          # (H * R, V)
     ok_row = torch.cat([ok for _, ok in tabs])
-    vt = _stack_tables(vts)
 
     x = torch.log(r / RMIN) / torch.log(r_his[halo] / RMIN) * (VTAB_R - 1)
     x = torch.clamp(x, 0.0, VTAB_R - 1 - 1e-4)

@@ -43,13 +43,14 @@ import torch
 
 from .. import constants as const
 from .blocks import BLOCK, SUPER, _interval_dist2
+from .cuda_build import _check, _launch
 from .kernels import WC6_NORM, m4_flat
 from .stream_pair import (_INFL, _KIND, _PAIR_BUDGET, MAX_CLUSTER, MAX_SHARE,
-                          PackedSources, _check, _check_packed,
-                          _cluster_size, _dens_sums, _keep_rows, _launch,
-                          _norm_sums, _pair_dx, _recv_tab, _rho_corr,
-                          _row_chunks, _row_tables, _update, build_chunk_tab,
-                          gather_sources, list_entries, pair_range)
+                          PackedSources, _check_packed, _cluster_size,
+                          _dens_sums, _keep_rows, _norm_sums, _pair_dx,
+                          _recv_tab, _rho_corr, _row_chunks, _row_tables,
+                          _update, build_chunk_tab, gather_sources,
+                          list_entries, pair_range)
 
 # sweep budgets of the TPU wrappers (solve_density_pallas,
 # fused_wvt_pallas); the count-class engine chooses its own per call site

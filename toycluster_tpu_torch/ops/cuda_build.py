@@ -5,9 +5,11 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/toycluster_tpu_torch/`` at the root of the checkout, keyed by a
 hash of the source, the headers of ``csrc/`` and the flags, and loaded
 with ``ctypes``.  ``build`` compiles several kernels at once, one ``nvcc``
-process each.  Nothing is compiled at import time; the CPU never reaches
-this module.  ``csrc=`` builds the sources of another directory (another
-tree's kernels, to time them beside this tree's in one process).
+process each.  Nothing is compiled at import time; on the CPU only the
+wrappers' argument check ``_check`` runs.  ``csrc=`` builds the sources of
+another directory (another tree's kernels, to time them beside this
+tree's in one process).  ``_launch`` calls a kernel's C entry point on
+the current stream.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -82,3 +86,38 @@ def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
         build([name], csrc)
         _LIBS[name, csrc] = ctypes.CDLL(str(_lib_path(name, csrc)))
     return _LIBS[name, csrc]
+
+
+def _check(name, t, dtype, shape, device):
+    """Raise unless tensor ``t`` (argument ``name`` of a kernel wrapper)
+    is on ``device`` with ``dtype`` and ``shape``, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(lib, args):
+    """Launch the C entry point ``<lib>_launch`` of csrc/<lib>.cu on the
+    current stream (``_call``)."""
+    _call(getattr(load(lib), f"{lib}_launch"), lib, args)
+
+
+def _call(fn, lib, args):
+    """Call the C launcher ``fn`` of kernel ``lib`` on the current stream:
+    a tensor (or None) is passed as a pointer, a Python float as a C
+    float, anything else as a C int; raises on a CUDA error."""
+    fn.argtypes = [ctypes.c_void_p if a is None or torch.is_tensor(a) else
+                   ctypes.c_float if isinstance(a, float) else ctypes.c_int
+                   for a in args] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(*[a.data_ptr() if torch.is_tensor(a) else
+              a if a is None or isinstance(a, float) else int(a)
+              for a in args], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {rc}")

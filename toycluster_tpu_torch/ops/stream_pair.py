@@ -34,7 +34,6 @@ here too, for ``ops/class_pair.py`` as well.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
@@ -42,6 +41,7 @@ import torch
 
 from .. import constants as const
 from .blocks import BLOCK, SUPER
+from .cuda_build import _check, _launch
 from .kernels import WC6_NORM, m4_flat
 
 # Newton/bisection sweeps of the per-block h solve (warm starts converge
@@ -90,18 +90,6 @@ def _rho_corr(desnngb, mpart, kernel):
     return -0.0116 * (desnngb * 0.01) ** (-2.236) * mpart
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_common(src_blocks, rows, cand, cnt, xi, lane_arrays):
     dev = src_blocks.device
     nb = src_blocks.shape[0]
@@ -126,28 +114,6 @@ def _pad_superblocks(src_blocks):
         return src_blocks
     return torch.cat([src_blocks, src_blocks.new_zeros(
         (pad,) + tuple(src_blocks.shape[1:]))])
-
-
-def _launch(lib, args):
-    """Launch the C entry point ``<lib>_launch`` of csrc/<lib>.cu on the
-    current stream (``_call``)."""
-    from .cuda_build import load
-    _call(getattr(load(lib), f"{lib}_launch"), lib, args)
-
-
-def _call(fn, lib, args):
-    """Call the C launcher ``fn`` of kernel ``lib`` on the current stream:
-    a tensor (or None) is passed as a pointer, a Python float as a C
-    float, anything else as a C int; raises on a CUDA error."""
-    fn.argtypes = [ctypes.c_void_p if a is None or torch.is_tensor(a) else
-                   ctypes.c_float if isinstance(a, float) else ctypes.c_int
-                   for a in args] + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(*[a.data_ptr() if torch.is_tensor(a) else
-              a if a is None or isinstance(a, float) else int(a)
-              for a in args], torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {rc}")
 
 
 # --------------------------------------------------------------------------

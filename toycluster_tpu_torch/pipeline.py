@@ -64,8 +64,8 @@ def make_ics(cfg: Config, *, device, engine: str = "stream",
     On CUDA the positions, sph_quantities, magnetic_field, temperatures
     and velocities records carry the allocator's ``mem_gib`` and
     ``peak_gib`` (the peak since this call began).  The velocities
-    record carries the spans of each halo's tables and ``wvt_done`` those
-    of the WVT loop (``spans``: ``utils.logging.Spans``).
+    record carries the spans of the velocity tables and ``wvt_done``
+    those of the WVT loop (``spans``: ``utils.logging.Spans``).
     """
     from .models.sph import check_engine
     check_engine(engine)
