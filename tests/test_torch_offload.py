@@ -290,6 +290,34 @@ def test_eager_rule_at_each_engines_limit(engine):
         assert L.eager_rule() == rule
 
 
+def test_offload_gives_the_same_bits_on_config_5(memo, monkeypatch):
+    """Config 5's set (mass ratio 1/2, comet orbit, substructure, the
+    third subhalo of ``data/cluster_config5.par``) through ``make_ics``
+    with the threshold below its gas count and above it: the same
+    particle set to the bit, and one park and one restore."""
+    par5 = os.path.join(os.path.dirname(PAR), "cluster_config5.par")
+    cfg = parse_par_file(par5, ntotal=2000, sph_kernel="m4",
+                         wvt_max_iter=2, mass_ratio=0.5, orbit="comet",
+                         substructure=True, add_third_subhalo=True,
+                         sub_first_mass=1e3)
+    runs = {}
+    for offload_n in (OFF, 1):
+        monkeypatch.setenv("TOYCLUSTER_WVT_OFFLOAD_N", str(offload_n))
+        logs = []
+        scene, parts = make_ics(cfg, device="cpu", write=False,
+                                log=lambda stage, **r: logs.append((stage,
+                                                                    r)))
+        runs[offload_n] = parts, logs
+    assert scene.nhalos == 4 and parts.n_gas < int(OFF)
+    (off, logs_off), (on, logs_on) = runs[OFF], runs[1]
+    _assert_same_particles(on, off)
+    assert _records(logs_on, "wvt") == _records(logs_off, "wvt")
+    assert [r["n_gas"] for r in _records(logs_on, "wvt_offload")] == [
+        on.n_gas]
+    assert len(_records(logs_on, "wvt_restore")) == 1
+    assert not _records(logs_off, "wvt_offload")
+
+
 def test_offload_threshold_is_the_jax_default(monkeypatch):
     monkeypatch.delenv("TOYCLUSTER_WVT_OFFLOAD_N", raising=False)
     assert twvt.OFFLOAD_N == 20_000_000

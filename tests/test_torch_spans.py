@@ -194,6 +194,39 @@ def test_the_loop_without_programs_counts_the_same_pairs(run, monkeypatch):
     assert not [st for st, _ in logs if st == "wvt_graph"]
 
 
+def test_offload_spans_only_where_the_loop_parks(run, monkeypatch):
+    """Below the offload threshold the loop opens no ``wvt_offload`` or
+    ``wvt_restore`` span; at or above it, one of each below the root,
+    the park before the first iteration and the restore after the last,
+    each with the gas ``rows`` and the ``host_bytes`` of pid (int64) and
+    halo (int32) parked, over the seconds of its record."""
+    parks = ("wvt_offload", "wvt_restore")
+    assert not {s["name"] for s in _spans(run, "wvt_done")} & set(parks)
+    monkeypatch.setenv("TOYCLUSTER_WVT_OFFLOAD_N", "1")
+    logs = []
+    cfg = parse_par_file(PAR, ntotal=2000, sph_kernel="m4", wvt_max_iter=1)
+    scene, parts = make_ics(cfg, device="cpu", engine=run["engine"],
+                            write=False,
+                            log=lambda stage, **kw: logs.append((stage, kw)))
+    spans = [kw for st, kw in logs if st == "wvt_done"][0]["spans"]
+    name = [s["name"] for s in spans]
+    assert [n for n in name if n in parks] == list(parks)
+    iters = [i for i, n in enumerate(name) if n == "wvt_iteration"]
+    off, back = name.index("wvt_offload"), name.index("wvt_restore")
+    assert off < iters[0] and back > iters[-1]
+    # the records keep their fields
+    fields = {"wvt_offload": {"n_gas", "seconds", "host_gib"},
+              "wvt_restore": {"seconds"}}
+    for i in (off, back):
+        s = spans[i]
+        assert s["parent"] == 0
+        assert s["rows"] == parts.n_gas
+        assert s["host_bytes"] == parts.n_total * 12
+        (rec,) = [kw for st, kw in logs if st == s["name"]]
+        assert rec["seconds"] == s["seconds"]
+        assert fields[s["name"]] <= set(rec)
+
+
 def test_the_profile_dir_trace_shows_the_loop_spans(tmp_path):
     """``make_ics(profile_dir=)`` asks for the spans' ranges: its trace of
     the WVT loop holds them (and no second ``wvt_loop``)."""

@@ -6,9 +6,16 @@ the samplers draw from other generators and are held by distribution (KS
 tests per subhalo); the deterministic stages (the WC2 gas-bulk taper,
 the SLOW_SUBSTRUCTURE orbits, the O(N^2) oracles, the WVT loop on a
 three-halo scene carried over with ``from_reference``) are fed the same
-inputs; and the pipeline runs end to end on the config-4 scene (mass
-ratio 1/3 with substructure) at ntotal 4,000, M4, 3 WVT iterations,
-against the JAX make_ics with its Pallas kernel in interpret mode."""
+inputs; and the pipeline runs end to end, M4, 3 WVT iterations,
+against the JAX make_ics with its Pallas kernel in interpret mode, on
+two flag sets: config 4's (mass ratio 1/3 with substructure: three
+halos) at ntotal 4,000, and config 5's (mass ratio 1/2, comet orbit,
+substructure and the third subhalo of 1e13 Msun with the SubFirst* tags
+of ``data/cluster_config5.par``: four halos, the third subhalo and one
+Giocoli subhalo) at ntotal 2,000, about the smallest size at which both
+packages sample it: at 1,500 the first cluster's DM budget is negative
+in both and the JAX sampler raises; at 1,800 it holds 20 DM, at 2,000
+90."""
 
 import dataclasses
 import os
@@ -56,8 +63,17 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAR = os.path.join(REPO, "toycluster_tpu_torch", "data", "cluster.par")
+PAR5 = os.path.join(REPO, "toycluster_tpu_torch", "data",
+                    "cluster_config5.par")
 E2E = dict(ntotal=4000, wvt_max_iter=3, sph_kernel="m4",
            mass_ratio=1.0 / 3.0, substructure=True)
+# the end-to-end flag sets: (par, overrides)
+E2E_SETS = {
+    "config4": (PAR, E2E),
+    "config5": (PAR5, dict(E2E, ntotal=2000, mass_ratio=0.5,
+                           orbit="comet", add_third_subhalo=True,
+                           sub_first_mass=1e3)),
+}
 # (overrides, Config.replace fields, setup_substructure seed)
 SCENES = {
     "single_host": (dict(ntotal=200_000, sph_kernel="m4"), {}, 5),
@@ -363,11 +379,12 @@ def _capture_wvt(rec):
     return run
 
 
-@pytest.fixture(scope="module")
-def e2e(tmp_path_factory):
+@pytest.fixture(scope="module", params=sorted(E2E_SETS))
+def e2e(request, tmp_path_factory):
+    par, over = E2E_SETS[request.param]
     out = str(tmp_path_factory.mktemp("ics") / "ic_sub")
     logs = []
-    scene, parts = make_ics(parse_par_file(PAR, output_file=out, **E2E),
+    scene, parts = make_ics(parse_par_file(par, output_file=out, **over),
                             device="cpu", check=True,
                             log=lambda stage, **kw: logs.append((stage, kw)))
     rec = {"wvt": []}
@@ -377,14 +394,15 @@ def e2e(tmp_path_factory):
                partial(pallas_pair.stream_wvt_pallas, interpret=True))
     mp.setattr(jwvt, "regularise_sph_particles", _capture_wvt(rec))
     try:
-        jscene, jparts = jax_make_ics(jax_parse(PAR, **E2E), write=False,
+        jscene, jparts = jax_make_ics(jax_parse(par, **over), write=False,
                                       log=silent_log)
     finally:
         mp.undo()
     port = {k: getattr(parts, k).numpy() for k in ("pos", "vel", "halo")}
     ref = {k: np.asarray(getattr(jparts, k)) for k in ("pos", "vel", "halo")}
-    return dict(scene=scene, parts=parts, port=port, ref=ref, logs=logs,
-                jscene=jscene, rec=rec, snap=read_snapshot(out))
+    return dict(name=request.param, par=par, over=over, scene=scene,
+                parts=parts, port=port, ref=ref, logs=logs, jscene=jscene,
+                rec=rec, snap=read_snapshot(out))
 
 
 def _groups(scene, d):
@@ -395,14 +413,29 @@ def _groups(scene, d):
 
 
 def test_e2e_scene_has_three_halos(e2e):
+    """Config 4's set: the two clusters and one Giocoli subhalo.  Config
+    5's: the third subhalo first after the clusters, at the par's
+    SubFirstPos with its mass and the par's SubFirstVel as its bulk
+    velocity, as JAX's, then one Giocoli subhalo."""
     scene, jscene = e2e["scene"], e2e["jscene"]
-    assert scene.nhalos == jscene.nhalos == 3 and scene.sub_first == 2
+    n = 3 if e2e["name"] == "config4" else 4
+    assert scene.nhalos == jscene.nhalos == n and scene.sub_first == 2
     assert [h.npart_gas for h in scene.halos] == \
         [h.npart_gas for h in jscene.halos]
-    assert ("substructure", dict(nhalos=3, nsub=1)) in e2e["logs"]
-    plain = build_scene(parse_par_file(PAR, **dict(E2E, substructure=False)))
+    assert [h.npart_dm for h in scene.halos] == \
+        [h.npart_dm for h in jscene.halos]
+    assert ("substructure", dict(nhalos=n, nsub=n - 2)) in e2e["logs"]
+    plain = build_scene(parse_par_file(
+        e2e["par"], **dict(e2e["over"], substructure=False)))
     np.testing.assert_allclose(scene.vel_merger, plain.vel_merger,
                                rtol=1e-12, atol=0)
+    if e2e["name"] == "config5":
+        third, jthird = scene.halos[2], jscene.halos[2]
+        np.testing.assert_array_equal(third.d_com, (300.0, 200.0, 0.0))
+        for k in ("d_com", "mtotal200", "mass_dm", "mass_gas", "bulk_vel"):
+            _same(getattr(jthird, k), getattr(third, k), f"third {k}")
+        np.testing.assert_array_equal(third.bulk_vel, (-500.0, 100.0, 0.0))
+        assert third.mass_dm > 0 and third.mass_gas > 0
 
 
 def test_e2e_membership_counts_match_jax(e2e):
@@ -482,9 +515,10 @@ def test_wvt_loop_on_three_halos_matches_jax(e2e):
     js = rec["scene"]
     fields = {f.name: getattr(js, f.name) for f in dataclasses.fields(js)
               if f.name not in ("config", "units", "cosmo", "halos")}
-    tscene = scene_from_numpy(parse_par_file(PAR, **E2E), fields,
-                              [dataclasses.asdict(h) for h in js.halos])
-    assert tscene.nhalos == 3
+    tscene = scene_from_numpy(parse_par_file(e2e["par"], **e2e["over"]),
+                              fields, [dataclasses.asdict(h)
+                                       for h in js.halos])
+    assert tscene.nhalos == e2e["scene"].nhalos
     tha = halo_arrays_from_numpy(rec["ha"])
     ref_ha = halo_arrays_from_scene(tscene, "cpu")
     for f in ("d_com", "r_sample_gas", "rho0", "minv_x", "minv_m2"):

@@ -113,3 +113,18 @@ def test_runner_needs_a_card_for_cuda():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_configs.main(["1"])
+
+
+def test_runner_runs_preset_5_with_its_own_par(tmp_path):
+    """Preset 5 reads ``data/cluster_config5.par`` (the SubFirst* tags)
+    unless ``par=`` is given, and writes a snapshot."""
+    assert run_configs.PARS[5].name == "cluster_config5.par"
+    out = tmp_path / "IC5"
+    assert run_configs.main(["5", "ntotal=2000", "sph_kernel=m4",
+                             "wvt_max_iter=2", "device=cpu",
+                             f"output_file={out}"]) == 0
+    snap = read_snapshot(str(out))
+    assert snap["pos"].shape == (2000, 3)
+    assert np.isfinite(snap["pos"]).all()
+    with pytest.raises(ValueError, match="missing"):
+        run_configs.main(["5", "ntotal=2000", "device=cpu", f"par={PAR}"])

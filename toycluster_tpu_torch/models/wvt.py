@@ -805,7 +805,6 @@ class _Parked:
         self.halo = _to_host(parts.halo)
         self.pos_dm = parts.pos[n_gas:].clone()
         self.vel, self.bfld, self.apot = parts.vel, parts.bfld, parts.apot
-        self.host_gib = (self.pid.nbytes + self.halo.nbytes) / 2**30
 
     def restore(self, order_acc, pos_gas, rho, hsml, vf, rho_model):
         """The particle set after the loop (JAX: :1096-1113): the gas
@@ -908,7 +907,11 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     call), ``wvt_capture`` (each program made, over what its
     ``wvt_graph`` seconds cover), ``wvt_step`` (each ``_Loop.iterate``
     call) and ``wvt_wait`` (the host waiting on an iteration's scalars);
-    after the root, ``wvt_release`` (the programs freed).
+    where the set is parked, ``wvt_offload`` before the first iteration
+    and ``wvt_restore`` after the last, below the root, over what their
+    records' seconds cover (both with the gas ``rows`` and the
+    ``host_bytes`` of ``pid`` and ``halo`` in host memory); after the
+    root, ``wvt_release`` (the programs freed).
 
     ``parts`` may come as a one-element list, the JAX package's holder
     protocol: the loop pops it, so where the caller keeps no reference
@@ -957,12 +960,14 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     h_prev = parts.hsml[:n_gas].clone()
     parked = None
     if held and offload_enabled(n_gas):
-        t_off = time.perf_counter()
-        parked = _Parked(parts)
-        parts = None
-        _sync(dev)
-        log("wvt_offload", n_gas=n_gas, seconds=time.perf_counter() - t_off,
-            host_gib=parked.host_gib, **stage_memory(dev))
+        moved = dict(rows=n_gas, host_bytes=parts.pid.nbytes
+                     + parts.halo.nbytes)
+        with spans.span("wvt_offload", **moved) as span:
+            parked = _Parked(parts)
+            parts = None
+            _sync(dev)
+        log("wvt_offload", n_gas=n_gas, seconds=span["seconds"],
+            host_gib=moved["host_bytes"] / 2**30, **stage_memory(dev))
     # model density at each particle's previous position (_warm_ratio);
     # 0 = no prediction
     rhom_prev = torch.zeros((n_gas,), dtype=torch.float32, device=dev)
@@ -1192,12 +1197,12 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
         spans.close(it_span)
     state = None
     if parked is not None:
-        t_back = time.perf_counter()
-        parts = parked.restore(order_acc, pos_gas, rho_l, hsml_l, vf_l,
-                               rho_model_l)
-        parked = None
-        _sync(dev)
-        log("wvt_restore", seconds=time.perf_counter() - t_back)
+        with spans.span("wvt_restore", **moved) as span:
+            parts = parked.restore(order_acc, pos_gas, rho_l, hsml_l, vf_l,
+                                   rho_model_l)
+            parked = None
+            _sync(dev)
+        log("wvt_restore", seconds=span["seconds"])
     else:
         parts = sph_mod.permute_gas(parts, order_acc)
         parts = parts.replace(pos=torch.cat([pos_gas, parts.pos[n_gas:]]))

@@ -13,11 +13,13 @@ as presets over the port's par::
    1e8 particles
 
 Each preset is a dict of ``Config`` overrides of ``par`` (default: the
-repository's ``data/cluster.par``); ``field=value`` tokens override the
-preset.  Preset 5 needs the ``SubFirst*`` tags, which that par lacks: the
-par parser then raises its missing-tag ValueError.  ``device`` defaults to
-``cuda`` and raises without a card; ``wvt_checkpoint`` and ``profile_dir``
-are the ``make_ics`` keywords of the same names.
+repository's ``data/cluster.par``, and for preset 5, which needs the
+``SubFirst*`` tags that par lacks, ``data/cluster_config5.par``: the same
+tags and a third subhalo's); ``field=value`` tokens override the preset.
+A ``par`` without the ``SubFirst*`` tags makes preset 5 raise the par
+parser's missing-tag ValueError.  ``device`` defaults to ``cuda`` and
+raises without a card; ``wvt_checkpoint`` and ``profile_dir`` are the
+``make_ics`` keywords of the same names.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from .models.sph import check_engine
 from .pipeline import make_ics
 
 PAR = Path(__file__).resolve().parent / "data" / "cluster.par"
+# the default par of a preset where it is not PAR
+PARS = {5: PAR.with_name("cluster_config5.par")}
 
 PRESETS = {
     1: dict(ntotal=2 * 32**3, bfld_norm=0.0, output_file="IC_config1"),
@@ -53,8 +57,9 @@ def main(argv=None):
               "[wvt_checkpoint=PATH] [profile_dir=DIR] [par=PATH]",
               file=sys.stderr)
         return 1
+    preset = int(argv[0])
     opts = dict(device="cuda", engine="stream", wvt_checkpoint=None,
-                profile_dir=None, par=str(PAR))
+                profile_dir=None, par=str(PARS.get(preset, PAR)))
     overrides = {}
     for tok in argv[1:]:
         k, _, v = tok.partition("=")
@@ -64,8 +69,7 @@ def main(argv=None):
             overrides[k] = _coerce(v)
     check_device(opts["device"])
     check_engine(opts["engine"])
-    cfg = parse_par_file(opts["par"], **{**PRESETS[int(argv[0])],
-                                         **overrides})
+    cfg = parse_par_file(opts["par"], **{**PRESETS[preset], **overrides})
     make_ics(cfg, device=opts["device"], engine=opts["engine"],
              wvt_checkpoint=opts["wvt_checkpoint"],
              profile_dir=opts["profile_dir"])
