@@ -10,8 +10,9 @@ parent).
 
 1. Checks that CUDA is available and prints the card's name and power
    limit.
-2. Builds the six hand-written kernels (toycluster_tpu_torch/csrc/*.cu:
-   the five pair kernels and the velocity stage's Eddington kernel) with
+2. Builds the seven hand-written kernels (toycluster_tpu_torch/csrc/*.cu:
+   the five pair kernels, the velocity stage's Eddington kernel and the
+   neighbour engine's superblock sweep) with
    nvcc for sm_90a, one nvcc process each, all started together, and
    prints the build time and nvcc's register report.
 3. Holds each kernel against its plain PyTorch version on the card on a
@@ -79,9 +80,10 @@ parent).
    1 the run moved past; prints each kernel call's device time (CUDA
    events around the wrapper), the checkpoint saves' times and the peak
    device memory per gas particle, the iteration programs made and
-   replayed and the WVT loop's seconds; at 5e7 gas, under the stream
-   engine's ``wvt.PROGRAM_MAX_GAS``, the loop must make programs, replay
-   sweep programs and run no iteration eagerly, no build or list refresh
+   replayed and the WVT loop's seconds; at 5e7 gas the loop must run on
+   programs (replaying sweep programs, no iteration eagerly) under the
+   engine's ``wvt.PROGRAM_MAX_GAS`` and eagerly by the rule "large" above
+   it (the stream engine's limit lies below 5e7), no build or list refresh
    may grow its search from below a width an earlier one reached (the
    sticky search width), and it must park the particle set
    (``wvt_offload``, ``wvt_restore``); A keeps the inputs of its first
@@ -124,7 +126,15 @@ parent).
    summed in magnitude, the same knots summed, a rerun bit-identical;
    both are timed with CUDA events, and its bound is the larger of its
    fp64 operations (OPS_EDDINGTON a term below its energy) over the
-   card's fp64 peak and its bytes over the HBM peak.
+   card's fp64 peak and its bytes over the HBM peak.  The superblock
+   sweep kernel (``blk.super_sweep``) is held against the plain PyTorch
+   sweep (``blk._super_sweep``, the top-k) on the inputs of the first
+   superblock sweep of step 5's first run (config 4 at Ntotal 1e7) and of
+   phase A's (1e8): the same lists, counts and widest count to the bit, a
+   rerun bit-identical; both are timed with CUDA events, and its bound is
+   the larger of OPS_SWEEP fp32 operations a box test (rows x
+   superblocks) over the card's fp32 peak and its bytes over the HBM
+   peak.  Every counted run zeroes and reads its launches.
 
 8. The sharded path (``toycluster_tpu_torch/parallel/``), through
    ``make_ics(mesh=..., check=True)`` with the ranks started by
@@ -226,12 +236,13 @@ parent).
    run with the programs off (no capture may synchronise).
 12. The superblock sweep: on the inputs of phase A's first superblock
    sweep (its first build's, 5e7 gas, kept in the run), at the recorded
-   width and at the width cap ``sph.SB_WIDTH_CAP``, the top-k sweep and
-   its oracle (the stable sort over every superblock that the top-k
-   replaced, ``blk._find_candidates_super_k_sorted``) must give the same
-   lists, counts and overflow to the bit; prints both times (CUDA
-   events, in turns), their peak memory and, at the recorded width, the
-   time of the sweep with no selection.
+   width and at the width cap ``sph.SB_WIDTH_CAP``, the sweep as the
+   loop runs it (``blk._find_candidates_super_k``: on the card the sweep
+   kernel, "top-k" in the output) and its oracle (the stable sort over
+   every superblock, ``blk._find_candidates_super_k_sorted``) must give
+   the same lists, counts and overflow to the bit; prints both times
+   (CUDA events, in turns), their peak memory and, at the recorded
+   width, the time of the plain PyTorch sweep with no selection.
 
 Prints the wall time of each phase, the kernel record (with each record's
 M4 numbers of step 9 as ``m4_*`` keys) and the card line before the last
@@ -271,6 +282,10 @@ LIBS = ("stream_wvt", "stream_curl", "solve_density", "wvt_displacement",
 # replaces no TPU kernel)
 EDDINGTON = ("eddington_integral", "eddington",
              "toycluster_tpu/models/eddington.py:61")
+# the neighbour engine's superblock sweep (record name, kernel library, the
+# JAX package's XLA function it takes over; it replaces no TPU kernel)
+SUPER_SWEEP = ("super_sweep", "super_sweep",
+               "toycluster_tpu/ops/blocks.py:273")
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): fp32 and fp64 outside the tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -291,6 +306,12 @@ OPS_DISP = 6                    # to box units (3), hbar (2), hbar^2
 # fp64 operations of one Eddington term below its E (csrc/eddington.cu):
 # E - x_k, sqrt (as one), s * sqrt(s), the product with d_k, the sum
 OPS_EDDINGTON = 5
+# fp32 operations of one box test of the superblock sweep
+# (csrc/super_sweep.cu): per axis the difference, its scale, rint, the
+# wrap's product and difference, the half-widths' sum, |d| - w, the clamp
+# and the square (9); the two adds of the sum; the range (an add, a
+# half, a max, a square) and the compare
+OPS_SWEEP = 34
 # what a check may measure besides the contract's keys: stream_wvt
 # without hoisting, the parent's kernel, a kernel without pruning and
 # hoisting, on one CTA a row, fused_wvt without the frozen-lane skip and
@@ -300,7 +321,8 @@ OPS_EDDINGTON = 5
 EXTRA_KEYS = ("ms_unhoisted", "parent_ms", "ms_unpruned", "ms_cluster1",
               "cluster", "kept_over_listed", "walked_over_listed",
               "tiles_over_walked", "ms_no_skip", "ms_no_tiles",
-              "err_over_magnitude")
+              "err_over_magnitude", "ms_1e8", "plain_ms_1e8",
+              "bound_ms_1e8")
 # the config-4 scenes of step 5: (engine, ntotal, SLOW_SUBSTRUCTURE); the
 # first, at the benchmark's size, gives step 7 the Eddington kernel's inputs
 SUBSTRUCTURE_RUNS = (("stream", 10_000_000, False),
@@ -1396,6 +1418,61 @@ def check_eddington(torch, call):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def check_super_sweep(torch, calls):
+    """Step 7's check of the superblock sweep kernel on the inputs of
+    ``calls`` ((tag, ``first_sweep``'s args): step 5's first run's first
+    sweep and phase A's): its lists, counts and widest count against the
+    plain PyTorch sweep's (``blk._super_sweep`` with the top-k) on the
+    same tensors to the bit, a rerun bit-identical; both timed with CUDA
+    events, and the bound: the larger of OPS_SWEEP fp32 operations a box
+    test (rows x superblocks) over the fp32 peak and the bytes read and
+    written once over the HBM peak.  Returns the first call's row, the
+    second's times as ``*_1e8``."""
+    from toycluster_tpu_torch.ops import blocks as blk
+    rows = []
+    for tag, call in calls:
+        if call is None:
+            fail(f"super_sweep: {tag} recorded no superblock sweep")
+        bi, rec_ids, radius, radius_sym, boxsize, width = call
+        args = blk._super_args(bi, rec_ids, radius, radius_sym)
+
+        def kernel():
+            return blk.super_sweep(*args, boxsize=boxsize, max_cand=width)
+
+        def plain():
+            return blk._super_sweep(*args, boxsize=boxsize, max_cand=width)
+        got, again, ref = kernel(), kernel(), plain()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"super_sweep: a rerun differs ({tag})")
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                and int(got[2][0]) == int(ref[2])):
+            bad = int((got[0] != ref[0]).any(dim=1).sum())
+            fail(f"super_sweep: {bad} rows, counts equal "
+                 f"{torch.equal(got[1], ref[1])}, differ from the plain "
+                 f"sweep's ({tag}, width {width})")
+        del again, ref
+        t, ns = rec_ids.shape[0], bi.sb_lo.shape[0]
+        big = t * ns > 1e9
+        ms = event_ms(torch, kernel, 5 if big else 20)
+        plain_ms = event_ms(torch, plain, 1 if big else 3)
+        bound_ms, by = bound(t * ns * OPS_SWEEP, nbytes(
+            bi.bb_lo, bi.bb_hi, bi.sb_lo, bi.sb_hi, rec_ids, radius,
+            radius_sym, *got))
+        say(f"super_sweep ({tag}): rows={t} superblocks={ns} width={width} "
+            f"widest={int(got[2][0])} spilled={int(got[2][1])} "
+            f"kernel_ms={ms:.6g} plain_ms={plain_ms:.6g} bound_ms="
+            f"{bound_ms:.6g} ({by})")
+        if bound_ms > ms:
+            fail(f"super_sweep: bound {bound_ms} ms above the kernel's {ms} "
+                 f"ms ({tag})")
+        rows.append(dict(err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=by))
+    res = rows[0]
+    for key in ("ms", "plain_ms", "bound_ms"):
+        res[f"{key}_1e8"] = rows[1][key]
+    return res
+
+
 def run_main_path(torch, sp, cp, tmp, engine):
     """The CLI main path on cuda with ``engine``, counted (``counted``).
     Returns (launches, recorded)."""
@@ -1408,8 +1485,8 @@ def run_main_path(torch, sp, cp, tmp, engine):
                                         log=run_log()))
     if rc != 0:
         fail(f"cli.main returned {rc} (engine={engine})")
-    need = (("stream_wvt", "stream_curl") if engine == "stream" else
-            CLASSED_NAMES)
+    need = (("stream_wvt", "stream_curl", SUPER_SWEEP[0])
+            if engine == "stream" else CLASSED_NAMES)
     for name in need:
         if launches[name] <= 0:
             fail(f"the {engine} main path launched {name} no time")
@@ -1497,8 +1574,9 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     snapshot must read back.  A second run of the same scene, without
     the audit and the snapshot, times every call of the per-halo
     functions (``timed_halo_loops``) for their share of each stage.
-    Returns the first run's err_mean trajectory and its Eddington call's
-    inputs."""
+    Returns the first run's err_mean trajectory, its Eddington call's
+    inputs and those of its first superblock sweep (``first_sweep``)."""
+    from toycluster_tpu_torch.ops import blocks as blk
     from toycluster_tpu_torch.pipeline import make_ics
     tag = f"config-4 {ntotal:.0e} {engine}"
     out = Path(tmp) / f"IC_sub_{engine}"
@@ -1507,9 +1585,15 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    (scene, parts), launches, totals, recorded, wall, t0 = counted(
-        torch, sp, cp, lambda: make_ics(cfg, device="cuda", engine=engine,
-                                        check=True, log=run_log()))
+    sweep, first = blk._find_candidates_super_k, {}
+    blk._find_candidates_super_k = first_sweep(torch, sweep, first)
+    try:
+        (scene, parts), launches, totals, recorded, wall, t0 = counted(
+            torch, sp, cp, lambda: make_ics(cfg, device="cuda",
+                                            engine=engine, check=True,
+                                            log=run_log()))
+    finally:
+        blk._find_candidates_super_k = sweep
     peak = torch.cuda.max_memory_allocated()
     say(f"[{tag}] slow_substructure={slow}; wall {wall:.3f} s; launches "
         f"{launches}")
@@ -1540,8 +1624,8 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     say(f"[{tag}] instrumented run (every per-halo call synchronised): "
         f"wall {wall:.3f} s")
     report_halo_loops(f"{tag} instrumented", book, list(run_log()), t0)
-    return [r["err_mean"] for r in recs if r["stage"] == "wvt"], \
-        eddington_call
+    return ([r["err_mean"] for r in recs if r["stage"] == "wvt"],
+            eddington_call, first.get("args"))
 
 
 def read_checkpoint(path):
@@ -1989,11 +2073,13 @@ E_MAX_CAND = 4096
 
 
 def _kernel_fns():
+    from toycluster_tpu_torch.ops import blocks as blk
     from toycluster_tpu_torch.ops import class_pair as cp
     from toycluster_tpu_torch.ops import eddington as ed
     from toycluster_tpu_torch.ops import stream_pair as sp
     return (sp.stream_wvt, sp.stream_curl, cp.solve_density,
-            cp.wvt_displacement, cp.fused_wvt, ed.eddington_integral)
+            cp.wvt_displacement, cp.fused_wvt, ed.eddington_integral,
+            blk.super_sweep)
 
 
 def _launch_counts():
@@ -2798,7 +2884,7 @@ PROGRAM_RUNS = (("preset 1 stream", "stream", "preset1"),
 # programs, replayed on at least this many iterations
 PROGRAM_SHAPES = (("preset 1 classed", "1e6 par classed"), 3, 8)
 # each kernel's device op in a trace holds this in its name
-DEVICE_OPS = {lib: f"{lib}_kernel" for lib in LIBS}
+DEVICE_OPS = {lib: f"{lib}_kernel" for lib in LIBS + (SUPER_SWEEP[1],)}
 
 
 def program_run(torch, sp, cp, tmp, engine, what, on):
@@ -2955,9 +3041,10 @@ SWEEP_REPS = 2
 def run_sweep_check(torch, first):
     """Step 12: the superblock sweep on the inputs of phase A's first
     superblock sweep (``first_sweep``; 5e7 gas), at the recorded width
-    and at ``sph.SB_WIDTH_CAP``: the top-k sweep
-    (``blk._find_candidates_super_k``) and its oracle, the stable sort
-    over every superblock (``blk._find_candidates_super_k_sorted``),
+    and at ``sph.SB_WIDTH_CAP``: the sweep the loop runs
+    (``blk._find_candidates_super_k``, the kernel) and its oracle, the
+    stable sort over every superblock
+    (``blk._find_candidates_super_k_sorted``),
     must give the same lists, counts and overflow to the bit.  Prints
     each one's time (CUDA events, SWEEP_REPS calls each, in turns) and
     its peak device memory over what the inputs hold, and at the
@@ -3076,7 +3163,7 @@ def main():
     from toycluster_tpu_torch.ops import cuda_build
     from toycluster_tpu_torch.ops import stream_pair as sp
     t0 = time.perf_counter()
-    libs = LIBS + (EDDINGTON[1],)
+    libs = LIBS + (EDDINGTON[1], SUPER_SWEEP[1])
     cuda_build.build(libs)
     say(f"build of {len(libs)} kernels (parallel nvcc): "
         f"{time.perf_counter() - t0:.3f} s")
@@ -3105,17 +3192,20 @@ def main():
                               ("classed", CLASSED_NAMES)):
             run_launches, run_recorded = run_main_path(torch, sp, cp, tmp,
                                                        engine)
+            if engine == "stream":
+                launches[SUPER_SWEEP[0]] = run_launches[SUPER_SWEEP[0]]
             for name in names:
                 launches[name] = run_launches[name]
                 if name not in run_recorded:
                     fail(f"no {name} call was recorded")
                 recorded[name] = run_recorded[name]
             t0 = phase(f"1e6 main path, engine={engine}", t0)
-        single_card_errs, eddington_calls = {}, []
+        single_card_errs, eddington_calls, sweep_calls = {}, [], []
         for engine, ntotal, slow in SUBSTRUCTURE_RUNS:
-            single_card_errs[engine, ntotal], call = run_substructure(
+            single_card_errs[engine, ntotal], call, sweep = run_substructure(
                 torch, sp, cp, tmp, engine, ntotal, slow)
             eddington_calls.append(call)
+            sweep_calls.append((f"config-4 {ntotal:.0e} {engine}", sweep))
             t0 = phase(f"config-4 {ntotal:.0e}, engine={engine}", t0)
         _, first = run_large(torch, sp, cp, tmp, "stream")
         t0 = phase(f"A: config-4 {LARGE_NTOTAL:.0e}, engine=stream", t0)
@@ -3137,7 +3227,6 @@ def main():
         run_programs(torch, sp, cp, tmp)
         t0 = phase("11: iteration programs", t0)
         run_sweep_check(torch, first)
-        del first
         t0 = phase("12: the superblock sweep", t0)
     parent = None
     if opts.parent_csrc is not None:
@@ -3147,6 +3236,10 @@ def main():
             f"({opts.parent_csrc}): {time.perf_counter() - t0:.3f} s")
     res = time_on_main_path_inputs(torch, sp, cp, recorded, parent)
     res[EDDINGTON[0]] = check_eddington(torch, eddington_calls[0])
+    res[SUPER_SWEEP[0]] = check_super_sweep(
+        torch, [sweep_calls[0], (f"A: config-4 {LARGE_NTOTAL:.0e} stream",
+                                 first)])
+    del first
     phase("kernels on main-path inputs", t0)
     # no single PyTorch call computes a per-lane h solve or an SPH pair
     # sum over candidate lists: library_ms is null for every kernel
@@ -3157,7 +3250,7 @@ def main():
          "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None}
-        for name, lib, rep in KERNELS + (EDDINGTON,)]}
+        for name, lib, rep in KERNELS + (EDDINGTON, SUPER_SWEEP)]}
     # what a check measured besides (EXTRA_KEYS); each record's launches
     # in step 8's sharded loops and in its sharded stages (E), summed over
     # runs and ranks; on the records of the sharded loop's first calls,

@@ -164,6 +164,15 @@ def test_records_take_their_seconds_from_the_spans(run):
         s["attempt"] for s in spans if s["name"] == "wvt_build"]
 
 
+def test_builds_and_refreshes_carry_sweep_spills(run):
+    """Each ``wvt_build`` and ``wvt_refresh`` record carries the rows its
+    sweeps spilled from the sweep kernel's on-chip buffer; the plain
+    sweep a CPU run takes spills none."""
+    recs = [kw for st, kw in run["logs"]
+            if st in ("wvt_build", "wvt_refresh")]
+    assert recs and all(r["sweep_spills"] == 0 for r in recs)
+
+
 def test_no_record_is_named_after_a_span_only_name(run):
     stages = {st for st, _ in run["logs"]}
     assert not stages & set(SPAN_ONLY)

@@ -10,24 +10,39 @@ function on its static buffers, equal to direct calls.
 
 Against the JAX package the lists are compared as sets where the order
 of equal-distance superblocks could differ (float differences in d2), as
-tests/test_torch_neighbours.py does; against the oracle, bit for bit."""
+tests/test_torch_neighbours.py does; against the oracle, bit for bit.
+
+The sweep kernel (``blk.super_sweep``, ``csrc/super_sweep.cu``) is held
+on the card, bit for bit, against the chunked PyTorch sweep it replaces
+(``blk._super_sweep`` with the top-k) and against the oracle; its CPU
+path is that PyTorch sweep.  JAX is imported only by the tests that
+compare with it, so the card tests run on a machine without it
+(``python -m pytest --noconftest -p no:cacheprovider -m cuda
+tests/test_torch_sweep.py``); without a card they skip."""
 
 from functools import partial
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from toycluster_tpu.models import sph as jsph
-from toycluster_tpu.ops import blocks as jblk
 from toycluster_tpu_torch.models import sph as tsph
 from toycluster_tpu_torch.ops import blocks as tblk
+from toycluster_tpu_torch.ops import cusp as tcusp
 
 torch.set_num_threads(2)
 
 BOX = 1000.0
 JAX_KEY = ("sball", False, True)   # the JAX memo key of the WVT loop's search
+
+
+def _jax():
+    """The JAX package's numpy, sph and blocks modules."""
+    import jax.numpy as jnp
+
+    from toycluster_tpu.models import sph as jsph
+    from toycluster_tpu.ops import blocks as jblk
+    return jnp, jsph, jblk
 
 
 def _cusp(n, seed):
@@ -137,6 +152,7 @@ def test_ties_at_zero_distance(width):
 def uniform():
     """600,000 uniform points blocked by both packages (586 superblocks:
     a search can grow past the first width and the probe), and radii."""
+    jnp, _, jblk = _jax()
     n = 600_000
     pos = (np.random.default_rng(11).random((n, 3)) * BOX).astype(np.float32)
     tb = tblk.build_blocks(torch.from_numpy(pos), BOX)
@@ -165,6 +181,7 @@ def test_search_width_follows_jax(uniform, monkeypatch):
     holds): the widths each call tried, the sticky search width after it,
     the trimmed width and the counts equal the JAX package's (its memos
     emptied first); a call whose start width holds sweeps once."""
+    jnp, jsph, jblk = _jax()
     tb, jb, rad0 = uniform
     for name in ("_LAST_MAX_CAND", "_TRIM_MEMO", "_BUCKET_MEMO"):
         monkeypatch.setattr(jsph, name, {})
@@ -220,6 +237,7 @@ def test_second_pass_rows_follow_jax(monkeypatch):
     count equals the JAX package's ``_SUBSET_MEMO`` after every call (the
     next power of two, at least 64, never below the last), and the lists
     equal the single pass of the oracle to the bit and JAX's as sets."""
+    jnp, _, jblk = _jax()
     monkeypatch.setattr(jblk, "_K_PROBE", 12)
     monkeypatch.setattr(tblk, "_K_PROBE", 12)
     monkeypatch.setattr(jblk, "_SUBSET_MEMO", {})
@@ -385,3 +403,242 @@ def test_loop_is_freed_without_the_cycle_collector(engine):
         assert ref() is None
     finally:
         gc.enable()
+
+
+# ------------------------------------------------ the sweep kernel
+
+def test_cpu_tensor_takes_the_plain_sweep(cusp):
+    """On a CPU tensor ``super_sweep`` is the plain sweep: the lists,
+    counts and widest count of ``_super_sweep`` with the top-k, no row
+    spilled, and no kernel launched."""
+    bi, rad, sym = cusp
+    args = tblk._super_args(bi, _rows(bi.n_blocks), rad, sym)
+    before = tblk.super_sweep.launches
+    idx, count, most = tblk.super_sweep(*args, boxsize=BOX, max_cand=16)
+    ref = tblk._super_sweep(*args, boxsize=BOX, max_cand=16)
+    assert torch.equal(idx, ref[0]) and torch.equal(count, ref[1])
+    assert most.tolist() == [int(ref[2]), 0]
+    assert tblk.super_sweep.launches == before == 0
+
+
+@pytest.mark.parametrize("t,k,n_sm,splits", [
+    (390_625, 256, 132, 2),    # 1e8 particles, the probe
+    (39_063, 256, 132, 2),     # 1e7
+    (3_907, 192, 132, 32),     # 1e6: few rows, so 32 threads a row
+    (390_625, 16, 132, 1),     # a narrow list: 32 keys a row hold it
+    (64, 1536, 132, 32)])      # a second pass's padded rows
+def test_sweep_splits_follow_the_rows_and_the_width(t, k, n_sm, splits):
+    """The kernel's threads a row: the fewest that give each row at least
+    min(k, 64) keys of the on-chip buffer and the sweep two CTAs a
+    multiprocessor, at most 32."""
+    got = tblk._sweep_splits(t, k, n_sm)
+    assert got == splits
+    row_keys = tblk._SWEEP_KEYS * got // tblk._SWEEP_THREADS
+    grid = -(-t * got // tblk._SWEEP_THREADS)
+    assert got == tblk._SWEEP_MAX_SPLITS or (
+        row_keys >= min(k, tblk._SWEEP_MIN_ROW_KEYS) and grid >= 2 * n_sm)
+
+
+def test_spills_read_where_the_sweeps_read_and_at_settle():
+    """``Sweeps`` counts the rows spilled that a sweep's host read took,
+    keeps those of the sweeps no read follows (a second pass's, on the
+    device) for ``settle``, which reads them all in one read, and hands
+    the sum to the record's tally."""
+    sweeps = tblk.Sweeps()
+    sweeps.note_spills(3)
+    sweeps.note_spills(torch.tensor(4, dtype=torch.int32))
+    sweeps.note_spills(torch.tensor([5], dtype=torch.int32)[0])
+    assert sweeps.spills == 3 and len(sweeps.unread) == 2
+    sweeps.settle(torch.device("cpu"))
+    assert sweeps.spills == 12 and not sweeps.unread
+    sweeps.settle(torch.device("cpu"))
+    assert sweeps.spills == 12
+    sweeps.tally()
+    assert sweeps.spills == 0
+
+
+@pytest.fixture
+def dev():
+    """The card, or a skip: decided inside the test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _card_scene(kind, dev, spread, n=2_500_000):
+    """A block index of ``n`` points on the card (19,532 blocks, 2,442
+    superblocks) and per-block radii and symmetric radii (0.7 of them):
+    the cusp centred on the box's corner, so that it lies across the
+    periodic edge on every axis, or uniform points.  ``spread``: radii
+    log-uniform over 10-700 a block (rows from a few hits to every
+    superblock), else the largest of 8-48 over each block's points."""
+    if kind == "cusp":
+        pos, _ = tcusp.cusp_points(n, seed=3, centre=0.0)
+    else:
+        pos = (np.random.default_rng(5).random((n, 3)) * BOX
+               ).astype(np.float32)
+    bi = tblk.build_blocks(torch.from_numpy(pos).to(dev), BOX)
+    nb = bi.n_blocks
+    if spread:
+        rng = np.random.default_rng(9)
+        rad = np.exp(rng.uniform(np.log(10.0), np.log(700.0), nb)
+                     ).astype(np.float32)
+        sym = (rad * 0.7).astype(np.float32)
+    else:
+        rad, sym = _radii(bi.order.cpu().numpy(), nb, n, seed=1)
+    return bi, torch.from_numpy(rad).to(dev), torch.from_numpy(sym).to(dev)
+
+
+@pytest.fixture(scope="module")
+def card_scenes():
+    """``_card_scene``s by (kind, spread), made once."""
+    return {}
+
+
+def _scene_of(card_scenes, kind, spread, dev):
+    if (kind, spread) not in card_scenes:
+        card_scenes[kind, spread] = _card_scene(kind, dev, spread)
+    return card_scenes[kind, spread]
+
+
+def _assert_kernel_equals_plain(bi, rows, rad, sym, width):
+    """The kernel's lists, counts and widest count against the chunked
+    PyTorch sweep's (top-k) and the oracle's (stable sort) on the card,
+    to the bit, and a rerun's; returns the rows spilled."""
+    args = tblk._super_args(bi, rows, rad, sym)
+    before = tblk.super_sweep.launches
+    got = tblk.super_sweep(*args, boxsize=BOX, max_cand=width)
+    again = tblk.super_sweep(*args, boxsize=BOX, max_cand=width)
+    assert tblk.super_sweep.launches == before + 2
+    for select in (tblk._nearest_topk, tblk._nearest_sorted):
+        ref = tblk._super_sweep(*args, boxsize=BOX, max_cand=width,
+                                select=select)
+        assert got[0].dtype == torch.int32 and got[0].shape == ref[0].shape
+        assert torch.equal(got[0], ref[0])
+        assert torch.equal(got[1], ref[1])
+        assert int(got[2][0]) == int(ref[2])
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    return int(got[2][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["default", "spills"])
+@pytest.mark.parametrize("width", [4, 64, 256, 1536, 2048, 4096])
+@pytest.mark.parametrize("kind", ["cusp", "uniform"])
+def test_kernel_equals_torch_sweep(dev, card_scenes, kind, width, regime,
+                                   monkeypatch):
+    """Every receiver row (two of them padded, -1) of the cusp across the
+    periodic edge and of uniform points, at widths 4, 64, 256, the cap
+    1536, a far-tail width past it (k < ns = 2,442) and one past ns
+    (4096: k = ns, the last columns -1): the kernel's lists, counts and
+    widest count equal the PyTorch sweep's and the oracle's to the bit.  "spills": radii from a few hits to
+    every superblock and a 512-key buffer (a 64-key slice a row), so
+    rows spill, keep their k nearest as they go (past 512 hits) and, for
+    k + 256 > 512, do so in the wrapper's device scratch; by default the
+    uniform rows fit their slices and the cusp's densest spill."""
+    if regime == "spills":
+        monkeypatch.setattr(tblk, "_SWEEP_KEYS", 512)
+    bi, rad, sym = _scene_of(card_scenes, kind, regime == "spills", dev)
+    assert (bi.n_blocks, bi.sb_lo.shape[0]) == (19_532, 2_442)
+    spilled = _assert_kernel_equals_plain(
+        bi, _rows(bi.n_blocks).to(dev), rad, sym, width)
+    assert (spilled > 0) == (regime == "spills" or kind == "cusp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["default", "spills"])
+def test_kernel_on_padded_far_tail_rows(dev, card_scenes, regime,
+                                        monkeypatch):
+    """300 rows drawn from the cusp's blocks then 212 padded ones (-1), as
+    the count-class engine's far tail passes them, at its first width
+    1024: equal to the PyTorch sweep and the oracle; the padded rows
+    count 0 and list -1 only."""
+    if regime == "spills":
+        monkeypatch.setattr(tblk, "_SWEEP_KEYS", 512)
+    bi, rad, sym = _scene_of(card_scenes, "cusp", regime == "spills", dev)
+    ids = torch.from_numpy(np.random.default_rng(2).choice(
+        bi.n_blocks, 300, replace=False).astype(np.int32))
+    rows = torch.cat([ids, ids.new_full((212,), -1)]).to(dev)
+    _assert_kernel_equals_plain(bi, rows, rad, sym, 1024)
+    idx, count, _ = tblk.super_sweep(*tblk._super_args(bi, rows, rad, sym),
+                                     boxsize=BOX, max_cand=1024)
+    assert bool((count[300:] == 0).all()) and bool((idx[300:] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 4, 256])
+def test_kernel_at_any_threads_a_row(dev, card_scenes, splits,
+                                     monkeypatch):
+    """One thread a row, four, and a whole CTA a row, with the 512-key
+    buffer (slices of 2, 8 and 512 keys) on the spread radii: the lists
+    do not depend on how the kernel splits a row."""
+    monkeypatch.setattr(tblk, "_SWEEP_KEYS", 512)
+    monkeypatch.setattr(tblk, "_sweep_splits", lambda t, k, n_sm: splits)
+    bi, rad, sym = _scene_of(card_scenes, "cusp", True, dev)
+    spilled = _assert_kernel_equals_plain(
+        bi, _rows(bi.n_blocks).to(dev), rad, sym, 256)
+    assert spilled > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 8, 40, 50, 80])
+def test_kernel_ties_at_zero_distance(dev, width):
+    """The tied index of ``test_ties_at_zero_distance`` on the card, and
+    a width past its 64 superblocks: the kernel keeps the lower ids of a
+    tie, as the PyTorch sweep and the oracle do, to the bit."""
+    bi = tblk.BlockIndex(*(x.to(dev) for x in _tied_index()))
+    rad = torch.full((bi.n_blocks,), 200.0, device=dev)
+    _assert_kernel_equals_plain(
+        bi, torch.arange(64, dtype=torch.int32, device=dev), rad, rad, width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boxsize", [1000.0, 14_285.714285714286])
+def test_torch_divides_by_a_python_float_as_by_its_reciprocal(dev, boxsize):
+    """PyTorch's CUDA division of a float32 tensor by a Python float is a
+    multiplication by the float32 reciprocal, as the kernel computes the
+    wrap (``d * inv_box``)."""
+    d = torch.from_numpy(np.random.default_rng(1).uniform(
+        -3 * boxsize, 3 * boxsize, 1 << 20).astype(np.float32)).to(dev)
+    inv = (1.0 / torch.tensor(boxsize, dtype=torch.float32)).item()
+    assert torch.equal(d / boxsize, d * inv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1 << 20,), (512, 2_442), (7, 48_829)])
+def test_torch_sums_three_axes_as_the_kernel_does(dev, shape):
+    """PyTorch's CUDA sum over a last axis of three (``_interval_dist2``'s
+    ``(gap * gap).sum(dim=-1)``) adds the first and the third, then the
+    second, as the kernel sums the axes: a + b + c as (a + c) + b."""
+    g = torch.from_numpy(np.random.default_rng(2).random(
+        shape + (3,)).astype(np.float32)).to(dev) * 100
+    assert torch.equal(g.sum(dim=-1),
+                       (g[..., 0] + g[..., 2]) + g[..., 1])
+
+
+@pytest.mark.cuda
+def test_replayed_sweeps_count_their_launches(dev, card_scenes):
+    """Through ``Sweeps`` with programs, a two-pass search's sweeps run
+    the kernel eagerly at a key's first call and by replay after: the
+    launch counter counts a replayed sweep as the eager one, the capture
+    none, and the lists equal direct calls'."""
+    bi, rad, sym = _scene_of(card_scenes, "cusp", False, dev)
+    rows = _rows(bi.n_blocks).to(dev)
+    sweeps, memo = tblk.Sweeps(programs=True), {}
+    counts = []
+    for scale in (5.0, 4.0, 5.0):
+        n0 = tblk.super_sweep.launches
+        got = tblk.find_candidates_super(bi, rows, rad * scale, sym * scale,
+                                         BOX, max_cand=512, memo=memo,
+                                         sweeps=sweeps)
+        counts.append(tblk.super_sweep.launches - n0)
+        ref = tblk.find_candidates_super(bi, rows, rad * scale, sym * scale,
+                                         BOX, max_cand=512)
+        assert torch.equal(got.idx, ref.idx)
+        assert torch.equal(got.count, ref.count)
+        assert got.overflow + 512 > tblk._K_PROBE
+    sweeps.settle(dev)
+    n, replayed, made = sweeps.tally()
+    assert counts == [2, 2, 2] and n == 6 and replayed == 4
+    assert len(made) == 2 and all(m["graph"] for m in made)

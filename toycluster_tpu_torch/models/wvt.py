@@ -53,8 +53,9 @@ count-class engine's sticky list, superblock and far-tail widths and its
 quantized class and far-tail sizes (``sph.build_neighbours_blocks``,
 ``sph.classed_selections``, one memo a relaxation) let a build find it,
 far-tail states included, which are rebuilt at every iteration.
-Iterations run eagerly above the engine's PROGRAM_MAX_GAS gas (derived
-from the card's memory) and with ``ITER_PROGRAMS = False``.  On the CPU a
+Iterations run eagerly above the engine's PROGRAM_MAX_GAS gas (where a
+replay saves no time or the card's memory runs short) and with
+``ITER_PROGRAMS = False``.  On the CPU a
 program runs the body on its static buffers, without a graph.  The
 candidate sweeps of the builds and list refreshes are programs too, under
 the same rules (``blk.Sweeps``, the counterpart of the JAX package's
@@ -135,21 +136,22 @@ SCALARS = ("err_max", "err_mean", "n_sat", "dmax_rel", "p999_rel",
 # (module docstring); with False every iteration runs eagerly
 ITER_PROGRAMS = True
 # above this many gas particles every iteration of an engine runs
-# eagerly, and so do the sweeps of its builds: half of one 80 GiB card
-# over the engine's own bytes a gas particle, the programs' (static
+# eagerly, and so do the sweeps of its builds (measured on an NVIDIA H100
+# 80GB HBM3 at 700.00 W).  Stream: the size at which the loop starts to
+# park its set to save memory (OFFLOAD_N); past it an iteration is long
+# enough that a replay saves no time, and the programs cost more memory
+# than the offload saves: config 5 at 5e7 gas made its IC in 40.81 s
+# with them and 40.95 s without, and they raised its peak from 14.13 to
+# 20.52 GiB (137 B a gas particle).  Count-class: half of one 80 GiB
+# card over the engine's own bytes a gas particle, the programs' (static
 # buffers and graph pool) plus the eager peak, each measured by
-# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W.  Stream (steps
-# 6 and 11): the iteration programs added 176-355 B at 5e5 and 5e6 gas,
-# the superblock sweep's program 38.8 B at 5e7 gas (1.8066 GiB, step
-# 6), the eager peak was 357.5 B at 5e7 gas; (355 + 38.8 + 357.5) B x
-# 5.5e7 = 38.5 GiB, and 6e7 gas would need 42.0 GiB.  Count-class: the
-# programs, the sweeps' among them, reserved 674.0-710.9 B more than an
-# eager run at 5e6 gas (step 11, config 4 at 1e7, after empty_cache and
-# reset_peak_memory_stats; 520.9-528.1 B before the sweeps were
-# programs), the eager peak reserved 463.0-470.9 B at 5e7 gas (step 6,
-# A2); (710.9 + 470.9) B x 3.5e7 = 38.5 GiB, and 4e7 gas would need
-# 44.0 GiB
-PROGRAM_MAX_GAS = {"stream": 55_000_000, "classed": 35_000_000}
+# chip_smoke.py: the programs, the sweeps' among them, reserved
+# 674.0-710.9 B more than an eager run at 5e6 gas (step 11, config 4 at
+# 1e7, after empty_cache and reset_peak_memory_stats; 520.9-528.1 B
+# before the sweeps were programs), the eager peak reserved 463.0-470.9
+# B at 5e7 gas (step 6, A2); (710.9 + 470.9) B x 3.5e7 = 38.5 GiB, and
+# 4e7 gas would need 44.0 GiB
+PROGRAM_MAX_GAS = {"stream": 20_000_000, "classed": 35_000_000}
 # at this many gas particles or more the loop keeps on the device only
 # what it reads (``_Parked``): the JAX package's switch and default
 OFFLOAD_N = 20_000_000
@@ -325,11 +327,15 @@ class _Loop:
         """The counts of the sweeps since the last build or refresh, for
         its record: ``sweeps`` run, programs ``replayed`` and
         ``captured`` (each made one logged as ``wvt_graph`` of kind
-        "sweep")."""
+        "sweep"), and ``sweep_spills``, the rows whose hits overflowed
+        the sweep kernel's on-chip buffer (read in the sweeps' own host
+        reads and at the call's ``settle``)."""
+        spills = self.sweeps.spills
         n, replayed, made = self.sweeps.tally()
         for rec in made:
             self.log("wvt_graph", it=it, kind="sweep", **rec)
-        return dict(sweeps=n, replayed=replayed, captured=len(made))
+        return dict(sweeps=n, replayed=replayed, captured=len(made),
+                    sweep_spills=spills)
 
     def walk_stats(self, rows, cols, device):
         """A zeroed (rows, cols) int32 ``stats=`` output of a pair kernel
@@ -1045,7 +1051,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                         state, pos_gas, hm_w, boxsize, widths=L.widths,
                         sweeps=L.sweeps)
                     drift_acc = 0.0
-                    _sync(dev)
+                    L.sweeps.settle(dev)
                 log("wvt_refresh", it=it, max_cand=state.max_cand,
                     seconds=span["seconds"], searched=state.cand.searched,
                     **L.sweep_record(it), **stage_memory(dev))
@@ -1081,7 +1087,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                     its_since_build = 0
                     drift_acc = 0.0
                     sort_drift_acc = 0.0
-                    _sync(dev)
+                    L.sweeps.settle(dev)
                 log("wvt_build", it=it, attempt=attempt,
                     seconds=span["seconds"],
                     max_cand=state.max_cand, searched=state.cand.searched,

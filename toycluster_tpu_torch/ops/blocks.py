@@ -25,6 +25,12 @@ rows over the probe width, padded to a size that repeats; each sweep is
 one function of tensors that reads nothing back, run through ``Sweeps``
 as a replayed program within the WVT loop, and the host reads the
 widest count and the rows over the probe between sweeps.
+
+On a CUDA tensor the superblock sweep is one launch of the hand-written
+kernel of ``csrc/super_sweep.cu`` (``super_sweep``, its launches in
+``super_sweep.launches``): box distances, hit counts and the nearest-k
+selection on chip, bit-equal to the chunked PyTorch sweep
+``_super_sweep``, which a CPU tensor runs.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 
 from ..utils.graphs import CapturePool, Program
 from ..utils.logging import Spans
+from .cuda_build import _check, _launch
 
 BLOCK = 128        # particles per block
 SUPER = 8          # blocks per superblock
@@ -181,18 +188,27 @@ class Sweeps:
     ``spans`` (a ``utils.logging.Spans``, the loop's) of kind "eager",
     "replay" or "capture" (the first call of a key), the last with a
     ``wvt_capture`` span of kind "sweep" over the program's making, whose
-    seconds are the made program's."""
+    seconds are the made program's.  A capture launches nothing, so the
+    kernel launches it records leave ``super_sweep.launches`` and are
+    added at each replay.
+
+    ``spills``: the rows whose hits overflowed the kernel's on-chip
+    buffer (``super_sweep``) in the sweeps since the last tally, read in
+    the host reads the sweeps make anyway (``note_spills``) or, for the
+    sweeps no host read follows, at ``settle``."""
 
     def __init__(self, programs=False, pool=None, spans=None):
         self.on = programs
         self.pool = CapturePool() if pool is None else pool
         self.spans = Spans() if spans is None else spans
         self.programs = {}
+        self.launches = {}   # kernel launches of each program, by key
         self._reset()
 
     def _reset(self):
-        self.sweeps = self.replayed = 0
+        self.sweeps = self.replayed = self.spills = 0
         self.made = []
+        self.unread = []
 
     def run(self, key, fn, args, sweep=True):
         """``fn(*args)`` (a tuple of tensors) for ``key``, as above;
@@ -204,6 +220,7 @@ class Sweeps:
                             "replay" if prog is not None else "capture")
             if prog is not None:
                 self.replayed += 1
+                super_sweep.launches += self.launches[key]
                 return prog.run(args)
             out = fn(*args)
             if self.on:
@@ -215,13 +232,36 @@ class Sweeps:
             graph = args[0].is_cuda
             reserved = torch.cuda.memory_reserved() if graph else 0
             prog = Program(fn, args)
+            n0 = super_sweep.launches
             if graph:
                 prog.capture(self.pool)
+            self.launches[key] = super_sweep.launches - n0
+            super_sweep.launches = n0
             self.programs[key] = prog
         self.made.append(dict(
             key=key, graph=graph, seconds=span["seconds"],
             **({"added_gib": (torch.cuda.memory_reserved() - reserved)
                 / 2**30} if graph else {})))
+
+    def note_spills(self, spills):
+        """Count ``spills``, the second number of a superblock sweep's
+        ``most``: a host int where a host read took it, else the device
+        tensor, kept for ``settle``."""
+        if torch.is_tensor(spills):
+            self.unread.append(spills.reshape(1))
+        else:
+            self.spills += spills
+
+    def settle(self, device):
+        """Wait for the work queued on ``device``, as the end of a build
+        or list refresh does: where sweeps left spills unread, by reading
+        them (one read, which waits for the stream's work), else by a
+        synchronise."""
+        if self.unread:
+            self.spills += sum(host_ints(torch.cat(self.unread)))
+            self.unread = []
+        elif device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def tally(self):
         """(sweeps run, programs replayed, programs made) since the last
@@ -232,6 +272,7 @@ class Sweeps:
 
     def clear(self):
         self.programs.clear()
+        self.launches.clear()
 
 
 def run_sweep(sweeps, key, fn, args, sweep=True):
@@ -407,6 +448,93 @@ def _super_sweep(bb_lo, bb_hi, sb_lo, sb_hi, rec_ids, radius, radius_sym,
     return idx, count, count.max()
 
 
+# csrc/super_sweep.cu: threads a CTA, the keys of its on-chip buffer (a
+# power of two: 64 KiB), the threads a row may take and the CTAs a sweep
+# should make at least (two a streaming multiprocessor)
+_SWEEP_THREADS = 256
+_SWEEP_KEYS = 8192
+_SWEEP_MAX_SPLITS = 32
+_SWEEP_MIN_ROW_KEYS = 64
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _sweep_splits(t, k, n_sm):
+    """Threads a receiver row of the sweep kernel for ``t`` rows at
+    selection width ``k`` on ``n_sm`` multiprocessors: the fewest (a
+    power of two) that give each row a slice of the on-chip buffer of
+    at least min(k, _SWEEP_MIN_ROW_KEYS) keys and the sweep two CTAs a
+    multiprocessor, at most _SWEEP_MAX_SPLITS."""
+    s = 1
+    while s < _SWEEP_MAX_SPLITS and (
+            _SWEEP_KEYS * s // _SWEEP_THREADS < min(k, _SWEEP_MIN_ROW_KEYS)
+            or -(-t * s // _SWEEP_THREADS) < 2 * n_sm):
+        s *= 2
+    return s
+
+
+def super_sweep(bb_lo, bb_hi, sb_lo, sb_hi, rec_ids, radius, radius_sym,
+                *, boxsize, max_cand):
+    """The superblock sweep of receiver blocks ``rec_ids`` at list width
+    ``max_cand``: (idx (T, max_cand) int32, count (T,) int32, most (2,)
+    int32: the widest count and the rows that spilled).  A CUDA tensor
+    launches the kernel of ``csrc/super_sweep.cu`` (``_sweep_splits``
+    threads a row), which gives ``_super_sweep``'s lists and counts to
+    the bit; ``most``
+    also counts the rows whose hits overflowed their slice of the
+    kernel's on-chip buffer and were swept again alone.  A CPU tensor
+    runs ``_super_sweep``, which spills nothing.  Reads nothing back."""
+    if not bb_lo.is_cuda:
+        idx, count, c_max = _super_sweep(
+            bb_lo, bb_hi, sb_lo, sb_hi, rec_ids, radius, radius_sym,
+            boxsize=boxsize, max_cand=max_cand)
+        return idx, count, torch.stack([c_max, torch.zeros_like(c_max)])
+    dev = bb_lo.device
+    nb, ns, t = bb_lo.shape[0], sb_lo.shape[0], rec_ids.shape[0]
+    bb_lo, bb_hi, sb_lo, sb_hi, rec_ids, radius, radius_sym = (
+        x.contiguous() for x in (bb_lo, bb_hi, sb_lo, sb_hi, rec_ids,
+                                 radius, radius_sym))
+    for name, x, dtype, shape in (
+            ("bb_lo", bb_lo, torch.float32, (nb, 3)),
+            ("bb_hi", bb_hi, torch.float32, (nb, 3)),
+            ("sb_lo", sb_lo, torch.float32, (ns, 3)),
+            ("sb_hi", sb_hi, torch.float32, (ns, 3)),
+            ("rec_ids", rec_ids, torch.int32, (t,)),
+            ("radius", radius, torch.float32, (nb,)),
+            ("radius_sym", radius_sym, torch.float32, (nb,))):
+        _check(name, x, dtype, shape, dev)
+    k = min(max_cand, ns)
+    splits = _sweep_splits(t, k, _sm_count(dev))
+    # each superblock's centre and sym, half-width and 0, rounded as
+    # _interval_dist2 and _super_sweep round them
+    pad = torch.zeros((ns * SUPER - nb,), dtype=torch.float32, device=dev)
+    sb_sym = torch.cat([radius_sym, pad]).reshape(ns, SUPER).amax(dim=1)
+    sbp = torch.cat([0.5 * (sb_lo + sb_hi), sb_sym[:, None],
+                     0.5 * (sb_hi - sb_lo), sb_sym.new_zeros((ns, 1))], dim=1)
+    idx = torch.empty((t, max_cand), dtype=torch.int32, device=dev)
+    count = torch.empty((t,), dtype=torch.int32, device=dev)
+    most = torch.zeros((2,), dtype=torch.int32, device=dev)
+    scratch, capg = None, 0
+    if k + _SWEEP_THREADS > _SWEEP_KEYS:
+        # rows over the on-chip buffer keep their k nearest in a slice of
+        # device memory a CTA instead
+        capg = 1 << (k + _SWEEP_THREADS - 1).bit_length()
+        grid = -(-t * splits // _SWEEP_THREADS)
+        scratch = torch.empty((grid, capg), dtype=torch.int64, device=dev)
+    box = torch.tensor(boxsize, dtype=torch.float32)
+    _launch("super_sweep", [
+        bb_lo, bb_hi, sbp, rec_ids, radius, radius_sym, idx, count, most,
+        scratch, ns, t, max_cand, k, splits, _SWEEP_KEYS, capg, box.item(),
+        (1.0 / box).item()])
+    super_sweep.launches += 1
+    return idx, count, most
+
+
+super_sweep.launches = 0
+
+
 def _super_args(bi, rec_ids, radius, radius_sym):
     return (bi.bb_lo, bi.bb_hi, bi.sb_lo, bi.sb_hi, rec_ids, radius,
             radius_sym)
@@ -414,11 +542,10 @@ def _super_args(bi, rec_ids, radius, radius_sym):
 
 def _super_lists(bi, rec_ids, radius, radius_sym, boxsize, max_cand,
                  sweeps=None):
-    """``_super_sweep`` with the top-k selection, through ``sweeps``
-    where it is given."""
+    """``super_sweep``, through ``sweeps`` where it is given."""
     return run_sweep(sweeps, ("super", bi.n_blocks, bi.sb_lo.shape[0],
                            rec_ids.shape[0], max_cand, boxsize),
-                  partial(_super_sweep, boxsize=boxsize, max_cand=max_cand),
+                  partial(super_sweep, boxsize=boxsize, max_cand=max_cand),
                   _super_args(bi, rec_ids, radius, radius_sym))
 
 
@@ -426,10 +553,13 @@ def _find_candidates_super_k(bi: BlockIndex, rec_ids, radius, radius_sym,
                              boxsize, max_cand: int, sweeps=None
                              ) -> CandidateList:
     """Single-pass superblock sweep at list width max_cand (the nearest
-    by top-k); the widest row's count comes back in one read."""
+    first); the widest row's count and the rows spilled come back in one
+    read."""
     idx, count, most = _super_lists(bi, rec_ids, radius, radius_sym,
                                     boxsize, max_cand, sweeps)
-    (c_max,) = host_ints(most[None])
+    c_max, spills = host_ints(most)
+    if sweeps is not None:
+        sweeps.note_spills(spills)
     return CandidateList(idx=idx, count=count, overflow=c_max - max_cand)
 
 
@@ -473,8 +603,8 @@ def find_candidates_super(bi: BlockIndex, rec_ids, radius, radius_sym,
     relaxation's width memo) so that the second pass's shape repeats.
     The output equals the single pass at max_cand.  The sweeps run
     through ``sweeps`` where it is given; the host reads the probe's
-    widest count and, where it overflows, the rows over it between
-    them."""
+    widest count and spills and, where it overflows, the rows over it
+    between them (the second pass's spills wait for ``sweeps.settle``)."""
     if max_cand <= _K_PROBE:
         return _find_candidates_super_k(bi, rec_ids, radius, radius_sym,
                                         boxsize, max_cand, sweeps)
@@ -491,8 +621,10 @@ def find_candidates_super(bi: BlockIndex, rec_ids, radius, radius_sym,
         sub = rec_ids.new_full(
             (subset_rows(n_over, bi.sb_lo.shape[0], memo),), -1)
         sub[:n_over] = rec_ids[over_rows]
-        full = _super_lists(bi, sub, radius, radius_sym, boxsize, max_cand,
-                            sweeps)[0]
+        full, _, most = _super_lists(bi, sub, radius, radius_sym, boxsize,
+                                     max_cand, sweeps)
+        if sweeps is not None:
+            sweeps.note_spills(most[1])
         idx[over_rows] = full[:n_over]
     return CandidateList(idx=idx, count=probe.count,
                          overflow=probe.overflow + _K_PROBE - max_cand)

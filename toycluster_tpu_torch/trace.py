@@ -45,7 +45,7 @@ import torch
 
 from .cli import _coerce
 from .config import parse_par_file
-from .ops import class_pair, stream_pair
+from .ops import blocks, class_pair, stream_pair
 from .pipeline import make_ics
 from .utils import logging as tlog
 from .utils.profiling import profiler
@@ -54,7 +54,7 @@ from .utils.profiling import profiler
 WVT_SPAN = "wvt_loop"
 KERNELS = (stream_pair.stream_wvt, stream_pair.stream_curl,
            class_pair.solve_density, class_pair.wvt_displacement,
-           class_pair.fused_wvt)
+           class_pair.fused_wvt, blocks.super_sweep)
 
 
 def _busy_us(intervals):
