@@ -71,33 +71,27 @@ parent).
    counted without recording any kernel's inputs, each printing its
    stage times with the allocator's mem_gib / peak_gib, each WVT build's
    and list refresh's time and width, the widths its candidate search
-   started and ended at, the sweeps it ran and the sweep programs it
-   replayed and made, the wall between WVT iterations and its phase's
-   wall time.  A: at config 5's size,
+   started and ended at, the sweeps it ran, the wall between WVT
+   iterations and its phase's wall time.  A: at config 5's size,
    Ntotal 1e8 (5e7 gas), on the stream engine through
    ``make_ics(check=True, wvt_checkpoint=...)``, with the checks of step
    5, and the checkpoint must hold the last iteration of the form 16 k -
    1 the run moved past; prints each kernel call's device time (CUDA
    events around the wrapper), the checkpoint saves' times and the peak
-   device memory per gas particle, the iteration programs made and
-   replayed and the WVT loop's seconds; at 5e7 gas the loop must run on
-   programs (replaying sweep programs, no iteration eagerly) under the
-   engine's ``wvt.PROGRAM_MAX_GAS`` and eagerly by the rule "large" above
-   it (the stream engine's limit lies below 5e7), no build or list refresh
-   may grow its search from below a width an earlier one reached (the
-   sticky search width), and it must park the particle set
-   (``wvt_offload``, ``wvt_restore``); A keeps the inputs of its first
-   superblock sweep for step 12.  Then A's offload gate: the
-   particle set make_ics hands the loop on A's scene, relaxed twice from
-   a host copy to wvt_max_iter 1, with the offload off and on, must give
-   the same pos, rho, hsml, pid and halo to the bit, and the device
-   memory at the first build must be at least 2 GiB lower with the
-   offload.  A2: A's scene on engine=classed without the checkpoint,
-   with A's checks; the loop runs on programs or eagerly by the rule
-   "large" as the count-class engine's limit says, and prints which;
-   prints the builds with their far-tail rows, widths and memory, each
-   kernel record's device times, and the peak allocated and reserved a
-   gas particle.  B: at Ntotal 1e7 on engine=classed,
+   device memory per gas particle and the WVT loop's seconds; no build or
+   list refresh may grow its search from below a width an earlier one
+   reached (the sticky search width), and at 5e7 gas the loop must park
+   the particle set (``wvt_offload``, ``wvt_restore``); A keeps the
+   inputs of its first superblock sweep for step 11.  Then A's offload
+   gate: the particle set make_ics hands the loop on A's scene, relaxed
+   twice from a host copy to wvt_max_iter 1, with the offload off and
+   on, must give the same pos, rho, hsml, pid and halo to the bit, and
+   the device memory at the first build must be at least 2 GiB lower
+   with the offload.  A2: A's scene on engine=classed without the
+   checkpoint, with A's checks; prints the builds with their far-tail
+   rows, widths and memory, each kernel record's device times, and the
+   peak allocated and reserved a gas particle.  B: at Ntotal 1e7 on
+   engine=classed,
    a run stopped at wvt_max_iter 16 must leave it = 15 in a fresh
    checkpoint; a second run (default wvt_max_iter, the audit,
    ``profile_dir``) must resume at it = 16 with the saved step, pass step
@@ -207,34 +201,7 @@ parent).
    adopt a queued iteration, no run at 0 may queue one.  Then preset 1
    (stream engine) at both settings, with step 9's gate against the JAX
    package's record and its first and final err_mean printed beside it.
-11. The WVT loop's iteration programs (``wvt.ITER_PROGRAMS``: each
-   iteration of a list shape replayed as one captured CUDA graph):
-   presets 1 (both engines), the 1e6 par (both engines) and config 4 at
-   Ntotal 1e7 (both engines), each with the programs on and off at the
-   default speculation, through ``make_ics(device="cuda")``, counted,
-   then again under the profiler.  Every pair must give the same wvt
-   records and relaxed gas (positions, rho, hsml) to the bit and the same
-   launches of every kernel record, the far-tail records included (a
-   replay adds the launches its program captured); with the programs on
-   every run replays one and no iteration runs eagerly (the first
-   iteration of a key makes the program); the builds and list refreshes
-   must search the same widths and run the same sweeps on and off, and
-   with the programs on each of their sweep programs (and a refresh's
-   box pass) must replay or be made by the first call of its key, and a
-   run with more than one build or refresh must replay one; the
-   classed preset 1 and 1e6
-   par make at most 3 programs and replay at least 8; none is made
-   without them; in every traced run the device ops of each kernel
-   number its launches (the kernels inside a replayed graph count in the
-   WVT span's busy time).  Prints per run the programs made and
-   replayed, the eager iterations, the capture seconds, the loop's
-   seconds and updates/s, the traced WVT span's idle share, the peak
-   device memory allocated and reserved and the memory the programs
-   added (``wvt_graph``'s ``added_gib``), and per pair the bytes a gas
-   particle that the programs added to the peaks (the measurement
-   behind ``wvt.PROGRAM_MAX_GAS``).  Step 5's instrumented second runs
-   run with the programs off (no capture may synchronise).
-12. The superblock sweep: on the inputs of phase A's first superblock
+11. The superblock sweep: on the inputs of phase A's first superblock
    sweep (its first build's, 5e7 gas, kept in the run), at the recorded
    width and at the width cap ``sph.SB_WIDTH_CAP``, the sweep as the
    loop runs it (``blk._find_candidates_super_k``: on the card the sweep
@@ -1120,14 +1087,11 @@ def counted(torch, sp, cp, drive, record=True):
     with ``record=False``, which keeps a large run's inputs from
     outliving it, CUDA events time each such call on the device instead)
     and to count block-list stream_curl launches and each list mode of
-    solve_density and wvt_displacement apart.  A call made while a WVT
-    iteration program is captured launches nothing and is neither
-    counted nor recorded here: the program adds its launches at each
-    replay (``wvt.REPLAYED_LAUNCHES``, by record name: the far-tail
-    calls under their ``_sb`` records), so the inputs recorded are those
-    of an eager call.  Returns (drive's result, launches by record
-    name, launches by kernel, recorded inputs (or, by record name, the
-    device ms and list shape of each call), wall s, start time)."""
+    solve_density and wvt_displacement apart (by the calls' ``sb_mode``:
+    the far-tail calls under their ``_sb`` records).  Returns (drive's
+    result, launches by record name, launches by kernel, recorded inputs
+    (or, by record name, the device ms and list shape of each call), wall
+    s, start time)."""
     from toycluster_tpu_torch.models import bfield, sph, velocities, wvt
     from toycluster_tpu_torch.ops import eddington as ed
 
@@ -1135,8 +1099,6 @@ def counted(torch, sp, cp, drive, record=True):
 
     def recorder(fn, name_of):
         def call(*args, **kw):
-            if torch.cuda.is_current_stream_capturing():
-                return fn(*args, **kw)
             n0 = fn.launches
             name = name_of(kw)
             if name is not None and not record:
@@ -1185,7 +1147,6 @@ def counted(torch, sp, cp, drive, record=True):
     kernels = _kernel_fns()
     for k in kernels:
         k.launches = 0
-    wvt.REPLAYED_LAUNCHES.clear()
     t0 = time.perf_counter()
     try:
         result = drive()
@@ -1193,7 +1154,6 @@ def counted(torch, sp, cp, drive, record=True):
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     wall = time.perf_counter() - t0
-    by_name.update(wvt.REPLAYED_LAUNCHES)
     if not record:
         torch.cuda.synchronize()
         recorded = {name: [(s.elapsed_time(e), shape)
@@ -1244,9 +1204,7 @@ def report_run(tag, t0, fell=True):
         f"{done[0]['seconds']:.3f} s = "
         f"{done[0]['particle_updates_per_s']:.6g} particle updates/s; "
         f"iterations queued ahead {done[0]['speculated']}, adopted "
-        f"{done[0]['adopted']}, dropped {done[0]['dropped']}; iteration "
-        f"programs made {done[0]['captured']}, replayed "
-        f"{done[0]['replayed']}, eager iterations {done[0]['eager']}")
+        f"{done[0]['adopted']}, dropped {done[0]['dropped']}")
     frac = sph.last_contract_frac
     say(f"[{tag}] neighbour contract fraction {frac}")
     if not frac >= 0.999:
@@ -1606,12 +1564,8 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
     del parts
     check_snapshot(out, ntotal)
     # the per-halo loops' share of each stage, from a second run whose
-    # per-halo calls are each synchronised (its times are not the run's),
-    # with the WVT iteration programs off: a graph holds the model
-    # density's calls, and no capture may synchronise
-    from toycluster_tpu_torch.models import wvt
+    # per-halo calls are each synchronised (its times are not the run's)
     book, restore = timed_halo_loops(torch)
-    wvt.ITER_PROGRAMS = False
     try:
         _, _, _, recorded, wall, t0 = counted(
             torch, sp, cp, lambda: make_ics(cfg, device="cuda",
@@ -1619,7 +1573,6 @@ def run_substructure(torch, sp, cp, tmp, engine, ntotal, slow):
                                             log=run_log()))
     finally:
         restore()
-        wvt.ITER_PROGRAMS = True
     del recorded
     say(f"[{tag}] instrumented run (every per-halo call synchronised): "
         f"wall {wall:.3f} s")
@@ -1669,14 +1622,11 @@ def run_large(torch, sp, cp, tmp, engine):
     kernel call instead), held to ``check_config4``; the snapshot reads
     back, and A's checkpoint holds the iteration ``saved_it`` names.  At
     5e7 gas the loop parks the particle set (``wvt_offload``): the run
-    must log it and its rebuild.  The loop must make programs and run no
-    iteration eagerly under the engine's ``wvt.PROGRAM_MAX_GAS``, and run
-    every iteration eagerly by the rule "large" above it.  Prints each
-    stage's time and device memory, each build's and list refresh's time,
-    widths, shapes, searched widths, sweeps, sweep programs replayed and
-    made, and memory, each kernel record's device times, the checkpoint
-    saves' times, the programs' capture seconds and memory, and the peak
-    device memory allocated and reserved, also a gas particle.  On the
+    must log it and its rebuild.  Prints each stage's time and device
+    memory, each build's and list refresh's time, widths, shapes,
+    searched widths, sweeps and memory, each kernel record's device
+    times, the checkpoint saves' times, and the peak device memory
+    allocated and reserved, also a gas particle.  On the
     stream engine no build or refresh may grow its search from below a
     width an earlier one of the relaxation reached (the sticky search
     width).  Returns the run's stage-log records and the inputs of its
@@ -1722,23 +1672,14 @@ def run_large(torch, sp, cp, tmp, engine):
              f"records {restore}")
     builds = [r for r in recs if r["stage"] in ("wvt_build", "wvt_refresh")]
     rows = [(r["stage"], r["it"], round(r["seconds"], 4), r["max_cand"],
-             r["searched"], r["sweeps"], r["replayed"], r["captured"],
-             r.get("tail_rows"), round(r["mem_gib"], 4),
-             round(r["peak_gib"], 4)) for r in builds]
+             r["searched"], r["sweeps"], r.get("tail_rows"),
+             round(r["mem_gib"], 4), round(r["peak_gib"], 4))
+            for r in builds]
     say(f"[{tag}] builds and list refreshes (stage, it, s, width, searched "
-        f"(first, last), sweeps, sweep programs replayed, made, far-tail "
-        f"rows, mem_gib, peak_gib): {rows}")
+        f"(first, last), sweeps, far-tail rows, mem_gib, peak_gib): "
+        f"{rows}")
     check_search_widths(tag, engine, builds)
     done = [r for r in recs if r["stage"] == "wvt_done"][0]
-    eager = [r["rule"] for r in recs if r["stage"] == "wvt_eager"]
-    all_graphs = [r for r in recs if r["stage"] == "wvt_graph"]
-    graphs = [r for r in all_graphs if r["kind"] == "iteration"]
-    sweep_graphs = [r for r in all_graphs if r["kind"] == "sweep"]
-    say(f"[{tag}] sweep programs made {len(sweep_graphs)} (key, capture "
-        f"s, added GiB): "
-        f"{[(r['key'], round(r['seconds'], 4), round(r['added_gib'], 4))
-            for r in sweep_graphs]}")
-    limit = wvt.PROGRAM_MAX_GAS[engine]
     say(f"[{tag}] WVT loop {done['seconds']:.6f} s, "
         f"{done['particle_updates_per_s']:.6g} updates/s; builds "
         f"{len([r for r in builds if r['stage'] == 'wvt_build'])} in "
@@ -1746,30 +1687,7 @@ def run_large(torch, sp, cp, tmp, engine):
         f" s, list refreshes "
         f"{len([r for r in builds if r['stage'] == 'wvt_refresh'])} in "
         f"{sum(r['seconds'] for r in builds if r['stage'] == 'wvt_refresh'):.3f}"
-        f" s; iteration programs made {done['captured']} (capture s "
-        f"{[round(r['seconds'], 4) for r in graphs]}, added GiB "
-        f"{[round(r.get('added_gib', 0.0), 4) for r in graphs]}), replayed "
-        f"{done['replayed']}, eager {done['eager']} {eager}; "
-        f"PROGRAM_MAX_GAS[{engine!r}] {limit}")
-    if n_gas <= limit and (eager or not done["captured"]
-                           or not done["replayed"] or not sweep_graphs
-                           or not sum(r["replayed"] for r in builds)):
-        fail(f"{tag}: {n_gas} gas under PROGRAM_MAX_GAS, yet programs made "
-             f"{done['captured']}, replayed {done['replayed']}, eager rules "
-             f"{eager}, sweep programs made {len(sweep_graphs)}, replayed "
-             f"{sum(r['replayed'] for r in builds)}")
-    # an eager loop runs each iteration, retry and dropped queued
-    # iteration through the body
-    calls = (done["iterations"] + done["dropped"]
-             + len([r for r in recs if r["stage"] == "wvt_retry"]))
-    if n_gas > limit and (eager != ["large"] or done["captured"]
-                          or done["eager"] != calls or sweep_graphs):
-        fail(f"{tag}: {n_gas} gas over PROGRAM_MAX_GAS, yet programs made "
-             f"{done['captured']}, eager iterations {done['eager']}, eager "
-             f"rules {eager}")
-    say(f"[{tag}] the loop ran "
-        f"{'eagerly by the rule large' if n_gas > limit else 'on programs'}"
-        f" ({n_gas} gas, limit {limit})")
+        f" s")
     if ck is not None:
         saves = [r for r in recs if r["stage"] == "wvt_checkpoint"]
         say(f"[{tag}] checkpoint saves (it, s): "
@@ -2765,7 +2683,7 @@ def run_variants(torch, sp, cp, tmp, t0):
 
 # the runs of step 10, each with TOYCLUSTER_SPECULATE at 1 and at 0:
 # (tag, engine, config-4 at this Ntotal or None for the 1e6 par)
-# (config 4 at 5e6 keeps the script within its time; step 11 runs 1e7)
+# (config 4 at 5e6 keeps the script within its time)
 SPEC_RUNS = (("1e6 par stream", "stream", None),
              ("1e6 par classed", "classed", None),
              ("config-4 5e6 stream", "stream", 5_000_000))
@@ -2869,169 +2787,7 @@ def run_speculation(torch, sp, cp, tmp, t0):
     return t0
 
 
-# ---------------------------------------- step 11: iteration programs
-
-# the runs of step 11, each with wvt.ITER_PROGRAMS on and off at the
-# default speculation: (tag, engine, "preset1" (run_configs preset 1),
-# "par" (the repository's par, 1e6) or config 4 at this Ntotal)
-PROGRAM_RUNS = (("preset 1 stream", "stream", "preset1"),
-                ("preset 1 classed", "classed", "preset1"),
-                ("1e6 par stream", "stream", "par"),
-                ("1e6 par classed", "classed", "par"),
-                ("config-4 1e7 stream", "stream", 10_000_000),
-                ("config-4 1e7 classed", "classed", 10_000_000))
-# the runs whose count-class shapes must repeat: at most this many
-# programs, replayed on at least this many iterations
-PROGRAM_SHAPES = (("preset 1 classed", "1e6 par classed"), 3, 8)
-# each kernel's device op in a trace holds this in its name
-DEVICE_OPS = {lib: f"{lib}_kernel" for lib in LIBS + (SUPER_SWEEP[1],)}
-
-
-def program_run(torch, sp, cp, tmp, engine, what, on):
-    """One run of step 11 through ``make_ics(device="cuda", write=False)``
-    with ``wvt.ITER_PROGRAMS = on``, counted without recording, then the
-    same configuration under the profiler (``trace.trace_make_ics``).
-    Fails unless the traced run's device ops of each kernel number its
-    launches (the kernels of a replayed graph are traced one by one).
-    Returns the row: the WVT record's counts and times, the capture
-    seconds, the traced WVT span's wall, busy and idle share, the peak
-    device memory allocated and reserved, the memory the programs added,
-    the gas particles, the launches by record (far-tail records apart),
-    the stage log's wvt records and the relaxed gas."""
-    from toycluster_tpu_torch import trace
-    from toycluster_tpu_torch.models import wvt
-    from toycluster_tpu_torch.pipeline import make_ics
-    from toycluster_tpu_torch.run_configs import PRESETS
-    out = Path(tmp) / "IC_programs"
-    cfg = (par_config(**{**PRESETS[1], "output_file": str(out)})
-           if what == "preset1" else
-           par_config(output_file=str(out)) if what == "par" else
-           config4(what, out))
-    wvt.ITER_PROGRAMS = on
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        (_, parts), launches, _, _, _, _ = counted(
-            torch, sp, cp, lambda: make_ics(cfg, device="cuda",
-                                            engine=engine, write=False,
-                                            log=run_log()),
-            record=False)
-        peak = torch.cuda.max_memory_allocated()
-        peak_reserved = torch.cuda.max_memory_reserved()
-        recs = list(run_log())
-        tr = trace.trace_make_ics(cfg, engine)
-    finally:
-        wvt.ITER_PROGRAMS = True
-    for lib, n in tr["launches"].items():
-        ops = sum(c for name, (c, _) in tr["ops"].items()
-                  if DEVICE_OPS[lib] in name)
-        if ops != n:
-            fail(f"programs={on}: the trace holds {ops} device ops of {lib}"
-                 f", its counter {n} launches")
-    done = [r for r in recs if r["stage"] == "wvt_done"][0]
-    graphs = [r for r in recs if r["stage"] == "wvt_graph"]
-    n_gas = parts.n_gas
-    return dict(
-        captured=done["captured"], replayed=done["replayed"],
-        eager=done["eager"], iterations=done["iterations"],
-        capture_s=sum(r["seconds"] for r in graphs
-                      if r["kind"] == "iteration"),
-        sweep_capture_s=sum(r["seconds"] for r in graphs
-                            if r["kind"] == "sweep"),
-        added_gib=sum(r.get("added_gib", 0.0) for r in graphs),
-        keys=[r["key"] for r in graphs if r["kind"] == "iteration"],
-        sweep_keys=[r["key"] for r in graphs if r["kind"] == "sweep"],
-        builds=[{k: r[k] for k in ("stage", "it", "max_cand", "searched",
-                                   "sweeps", "replayed", "captured")}
-                for r in recs if r["stage"] in ("wvt_build", "wvt_refresh")],
-        loop_s=done["seconds"],
-        updates_per_s=done["particle_updates_per_s"],
-        wvt_wall=tr["wvt_wall"], wvt_busy=tr["wvt_busy"],
-        wvt_idle=tr["wvt_idle"], peak_gib=peak / 2**30,
-        peak_reserved_gib=peak_reserved / 2**30, n_gas=n_gas,
-        launches=launches,
-        wvt=[{k: v for k, v in r.items() if k != "t"} for r in recs
-             if r["stage"] == "wvt"],
-        gas=(parts.pos[:n_gas], parts.rho, parts.hsml))
-
-
-def run_programs(torch, sp, cp, tmp):
-    """Step 11: PROGRAM_RUNS with the WVT iteration programs on and off
-    (``program_run``), the sweep programs of the builds and list
-    refreshes with them.  Each pair must give the same wvt records, the
-    same builds and refreshes (widths, searched widths, sweeps) and the
-    same relaxed gas (positions, rho, hsml; ``torch.equal``) and the same
-    launches of every kernel record; with programs off none is made or
-    replayed; with them on every run replays one and runs no iteration
-    eagerly, every program a build or refresh runs (its sweeps and a
-    refresh's box pass) replays one or makes one (the first call of its
-    key), a run with more than one build or refresh replays a sweep
-    program, and the PROGRAM_SHAPES runs make few programs and replay
-    them often."""
-    rows = {}
-    for tag, engine, what in PROGRAM_RUNS:
-        for on in (True, False):
-            t = time.perf_counter()
-            rows[tag, on] = program_run(torch, sp, cp, tmp, engine, what,
-                                        on)
-            say(f"[{tag}] programs={on}: {time.perf_counter() - t:.3f} s "
-                f"(a run and a traced run); graph keys "
-                f"{rows[tag, on]['keys']}")
-        on, off = rows[tag, True], rows[tag, False]
-        if on["wvt"] != off["wvt"]:
-            fail(f"{tag}: wvt records differ with programs on and off:\n"
-                 f"{on['wvt']}\n{off['wvt']}")
-        for name, a, b in zip(("positions", "rho", "hsml"), on["gas"],
-                              off["gas"]):
-            if not torch.equal(a, b):
-                fail(f"{tag}: the relaxed gas's {name} differ with programs "
-                     f"on and off")
-        if on["launches"] != off["launches"]:
-            fail(f"{tag}: launches {on['launches']} with programs, "
-                 f"{off['launches']} without")
-        if off["captured"] or off["replayed"]:
-            fail(f"{tag}: programs off made {off['captured']}, replayed "
-                 f"{off['replayed']}")
-        if not on["replayed"] > 0 or on["eager"]:
-            fail(f"{tag}: programs on replayed {on['replayed']}, ran "
-                 f"{on['eager']} iterations eagerly")
-        check_sweep_programs(tag, on["builds"], off["builds"])
-        names, most, least = PROGRAM_SHAPES
-        if tag in names and not (on["captured"] <= most
-                                 and on["replayed"] >= least):
-            fail(f"{tag}: {on['captured']} programs made (at most {most}), "
-                 f"{on['replayed']} replayed (at least {least})")
-        say(f"[{tag}] programs on and off: the same {len(on['wvt'])} wvt "
-            f"records, positions, rho and hsml to the bit; launches "
-            f"{on['launches']}")
-        on["gas"] = off["gas"] = None
-    say("step 11 (WVT iteration programs; idle shares from the traced "
-        "second run): run, programs, iterations, made, replayed, eager, "
-        "capture s, sweep programs made, their capture s, loop s, "
-        "updates/s, traced WVT span s, its device busy s, idle share of "
-        "the WVT span, peak GiB allocated, reserved, added by the programs")
-    for (tag, on), r in rows.items():
-        say(f"  {tag} | {'on' if on else 'off'} | {r['iterations']} | "
-            f"{r['captured']} | {r['replayed']} | {r['eager']} | "
-            f"{r['capture_s']:.6f} | {len(r['sweep_keys'])} | "
-            f"{r['sweep_capture_s']:.6f} | {r['loop_s']:.6f} | "
-            f"{r['updates_per_s']:.6g} | {r['wvt_wall']:.6f} | "
-            f"{r['wvt_busy']:.6f} | {r['wvt_idle']:.6f} | "
-            f"{r['peak_gib']:.4f} | {r['peak_reserved_gib']:.4f} | "
-            f"{r['added_gib']:.4f}")
-    say("step 11, what the programs add to the peak device memory, bytes a "
-        "gas particle (on - off): run, gas, allocated, reserved, added")
-    for tag, _, _ in PROGRAM_RUNS:
-        on, off = rows[tag, True], rows[tag, False]
-        per = 2**30 / on["n_gas"]
-        say(f"  {tag} | {on['n_gas']} | "
-            f"{(on['peak_gib'] - off['peak_gib']) * per:.1f} | "
-            f"{(on['peak_reserved_gib'] - off['peak_reserved_gib']) * per:.1f}"
-            f" | {on['added_gib'] * per:.1f}")
-
-
-# ------------------------------------------- step 12: the superblock sweep
+# ------------------------------------------- step 11: the superblock sweep
 
 # CUDA-event timings of each sweep at each width, in turns: top-k,
 # oracle, oracle, top-k
@@ -3039,7 +2795,7 @@ SWEEP_REPS = 2
 
 
 def run_sweep_check(torch, first):
-    """Step 12: the superblock sweep on the inputs of phase A's first
+    """Step 11: the superblock sweep on the inputs of phase A's first
     superblock sweep (``first_sweep``; 5e7 gas), at the recorded width
     and at ``sph.SB_WIDTH_CAP``: the sweep the loop runs
     (``blk._find_candidates_super_k``, the kernel) and its oracle, the
@@ -3055,7 +2811,7 @@ def run_sweep_check(torch, first):
     if first is None:
         fail("phase A recorded no superblock sweep")
     bi, rec_ids, radius, radius_sym, boxsize, width = first
-    say(f"step 12: receiver rows {rec_ids.shape[0]}, superblocks "
+    say(f"step 11: receiver rows {rec_ids.shape[0]}, superblocks "
         f"{bi.sb_lo.shape[0]}, recorded width {width}")
     fns = {"top-k": blk._find_candidates_super_k,
            "oracle": blk._find_candidates_super_k_sorted}
@@ -3080,10 +2836,10 @@ def run_sweep_check(torch, first):
                 and torch.equal(got.count, ref.count)
                 and got.overflow == ref.overflow):
             bad = int((got.idx != ref.idx).any(dim=1).sum())
-            fail(f"step 12: the top-k sweep differs from its oracle at "
+            fail(f"step 11: the top-k sweep differs from its oracle at "
                  f"width {w}: {bad} rows, overflow {got.overflow} vs "
                  f"{ref.overflow}")
-        say(f"[step 12, width {w}] top-k and oracle lists, counts and "
+        say(f"[step 11, width {w}] top-k and oracle lists, counts and "
             f"overflow ({got.overflow}) the same to the bit; ms a sweep "
             f"(CUDA events) top-k {ms['top-k']}, oracle {ms['oracle']}; "
             f"mean {sum(ms['top-k']) / len(ms['top-k']):.3f} vs "
@@ -3103,38 +2859,9 @@ def run_sweep_check(torch, first):
                              boxsize=boxsize, max_cand=w, select=unselected)
             ev[1].record()
             torch.cuda.synchronize()
-            say(f"[step 12, width {w}] the sweep with no selection (box "
+            say(f"[step 11, width {w}] the sweep with no selection (box "
                 f"distances, ranges, counts): "
                 f"{ev[0].elapsed_time(ev[1]):.3f} ms")
-
-
-def check_sweep_programs(tag, on, off):
-    """Step 11's gates on the builds and list refreshes of a run with the
-    programs on and off (``program_run``'s ``builds``): the same widths,
-    searched widths and sweeps; off, no sweep program replayed or made;
-    on, each program a call ran (its sweeps and a refresh's box pass)
-    replayed or made (the first call of its key), and a sweep program
-    replayed where the run has more than one build or refresh."""
-    same = ("stage", "it", "max_cand", "searched", "sweeps")
-    if [[b[k] for k in same] for b in on] != [[b[k] for k in same]
-                                              for b in off]:
-        fail(f"{tag}: builds and refreshes differ with programs on and "
-             f"off:\n{on}\n{off}")
-    if any(b["replayed"] or b["captured"] for b in off):
-        fail(f"{tag}: programs off replayed or made a sweep program: {off}")
-    for b in on:
-        if b["replayed"] + b["captured"] != (
-                b["sweeps"] + (b["stage"] == "wvt_refresh")):
-            fail(f"{tag}: {b['stage']} at it = {b['it']} ran "
-                 f"{b['sweeps']} sweeps, replayed {b['replayed']} and made "
-                 f"{b['captured']} programs")
-    if len(on) > 1 and not sum(b["replayed"] for b in on):
-        fail(f"{tag}: {len(on)} builds and refreshes, no sweep program "
-             f"replayed")
-    say(f"[{tag}] builds and refreshes (stage, it, searched, sweeps, "
-        f"replayed, made) with programs: "
-        f"{[(b['stage'], b['it'], b['searched'], b['sweeps'], b['replayed'],
-             b['captured']) for b in on]}")
 
 
 def main():
@@ -3224,10 +2951,8 @@ def main():
         t10 = t0
         run_speculation(torch, sp, cp, tmp, t0)
         t0 = phase("10: speculative dispatch", t10)
-        run_programs(torch, sp, cp, tmp)
-        t0 = phase("11: iteration programs", t0)
         run_sweep_check(torch, first)
-        t0 = phase("12: the superblock sweep", t0)
+        t0 = phase("11: the superblock sweep", t0)
     parent = None
     if opts.parent_csrc is not None:
         t0 = time.perf_counter()

@@ -1,19 +1,18 @@
 """The count-class engine's stable shapes (``models/sph.py``:
 ``quantize_size``, the ``widths`` memo of ``build_neighbours_blocks`` and
-``classed_selections``, padded ids in ``run_classed``; ``models/wvt.py``:
-far-tail states inside the iteration program) against the JAX package's
-(``toycluster_tpu/models/sph.py`` ``_quantize_size``, ``_CLASS_SIZE_MEMO``,
-``_LAST_MAX_CAND``, ``classed_selections``, ``run_classed``).
+``classed_selections``, padded ids in ``run_classed``) against the JAX
+package's (``toycluster_tpu/models/sph.py`` ``_quantize_size``,
+``_CLASS_SIZE_MEMO``, ``_LAST_MAX_CAND``, ``classed_selections``,
+``run_classed``).
 
 The JAX side runs as in tests/test_torch_classed.py: the count-class
 engine (TOYCLUSTER_ENGINE=xla) with the memos of a fresh process.  The
 builds run on a 40,000-point cusp (313 blocks, so the size grid has two
 steps, 78 and 313 rows).  Padded and exact classes are held to the bit
-on the plain versions, and so are a far-tail state's eager iteration and
-the replay of its program, on the scene of
-tests/test_torch_iter_program.py (the JAX make_positions at ntotal =
-3,000, WC6, seed 5; 12 blocks, each listing all 12) with list widths of
-16 blocks (one class) or 8 (every row in the far tail)."""
+on the plain versions, on the scene of tests/test_torch_iter_program.py
+(the JAX make_positions at ntotal = 3,000, WC6, seed 5; 12 blocks, each
+listing all 12) with list widths of 16 blocks (one class) or 8 (every
+row in the far tail)."""
 
 import os
 from functools import lru_cache
@@ -182,13 +181,6 @@ def _scene(**more):
 LIST_WIDTHS = {"classes": 16, "tail": 8}
 
 
-@pytest.fixture
-def tail_lists(monkeypatch):
-    """Every row a far-tail row."""
-    monkeypatch.setattr(tsph, "MAX_CAND_START", LIST_WIDTHS["tail"])
-    monkeypatch.setattr(tsph, "MAX_CAND_CAP", LIST_WIDTHS["tail"])
-
-
 def _exact(monkeypatch, state):
     """Exact sizes from here on (``quantize_size`` returns n) and
     ``state`` without its padded far-tail rows."""
@@ -200,30 +192,12 @@ def _exact(monkeypatch, state):
     return state._replace(tail=tuple(x[keep] for x in state.tail))
 
 
-def _loop_inputs(L, state):
-    """The loop arrays of a first iteration on ``state``: cold h, a
-    fresh cap factor, step 0.0085, err_last inf."""
-    n = L.n_gas
-    pos_gas = state.index.pos[:n]
-    zero = torch.zeros((n,), dtype=torch.float32)
-    return (pos_gas, zero, zero, torch.zeros((n,), dtype=torch.bool),
-            torch.full((n,), tsph.CAP_FACTOR, dtype=torch.float32),
-            torch.tensor(0.0085, dtype=torch.float32),
-            torch.tensor(float("inf"), dtype=torch.float32))
-
-
 def _build(L, pos_gas, widths):
     _, h0_model, h_box = L.model_fields(pos_gas)
     h_cap = torch.clamp(h0_model * tsph.CAP_FACTOR * 1.5, max=L.h_hard)
     return tsph.build_neighbours_blocks(
         pos_gas, h_cap, L.boxsize, widths=widths,
         radius_sym_gas=h_box * L.boxsize * twvt.SYM_MARGIN)
-
-
-def _iterate(L, state, inputs, it):
-    pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step, err_last = inputs
-    return L.iterate(state, pos_gas, h_prev, rhom_prev, sat_mask, 1.02,
-                     fac_gas, step, err_last, it)
 
 
 def _equal(a, b):
@@ -284,70 +258,3 @@ def test_padded_classes_give_the_exact_bits(monkeypatch, rows):
     assert torch.equal(tbfield.sph_curl(scene, parts,
                                         _exact(monkeypatch, cstate)),
                        b_padded)
-
-
-def test_far_tail_state_replays_its_program(tail_lists):
-    """A far-tail state makes one program at its first iteration; the
-    next build (moved positions, one memo) is a new far-tail state of
-    the same quantized shapes and replays it, with the bits of the eager
-    iteration on that state (programs off)."""
-    tha, tparts = _start()
-    logs = []
-    L = twvt._Loop(_scene(), tha, tparts.n_gas, "classed",
-                   torch.device("cpu"),
-                   lambda stage, **kw: logs.append((stage, kw)))
-    s1 = _build(L, tparts.pos[:L.n_gas].clone(), L.widths)
-    assert s1.tail is not None
-    out = _iterate(L, s1, _loop_inputs(L, s1), 0)
-    assert (L.captured, L.replayed, L.eager) == (1, 0, 0)
-    s2 = _build(L, out["pos_new"], L.widths)
-    assert s2.tail is not None and s2.cand.idx is not s1.cand.idx
-    assert not torch.equal(s2.index.pos, s1.index.pos)
-    key = L.program_key(s2, L.selections(s2))
-    assert key == L.program_key(s1, L.selections(s1))
-    inputs2 = _loop_inputs(L, s2)
-    got = _iterate(L, s2, inputs2, 1)
-    assert (L.captured, L.replayed, L.eager) == (1, 1, 0)
-    (prog,) = L.programs.values()
-    assert torch.equal(prog.lists[3], s2.tail[0])
-    assert torch.equal(prog.lists[4], s2.tail[1])
-    L2 = twvt._Loop(_scene(), tha, tparts.n_gas, "classed",
-                    torch.device("cpu"), lambda stage, **kw: None)
-    pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step, err_last = inputs2
-    ref = L2.body(s2, L2.selections(s2), pos_gas, h_prev, rhom_prev,
-                  sat_mask, torch.tensor(1.02, dtype=torch.float32), fac_gas,
-                  step, err_last, torch.tensor(1, dtype=torch.int32))
-    assert sorted(got) == sorted(ref)
-    for k in got:
-        assert torch.equal(got[k], ref[k]), k
-    assert [s for s, _ in logs] == ["wvt_graph"]
-
-
-def test_classed_loop_makes_fewer_programs_than_builds(tail_lists,
-                                                       monkeypatch):
-    """The classed loop on that scene with far-tail rows at every build
-    (a build an iteration): fewer programs than builds, the
-    rest replayed, no iteration eager; the same relaxation to the bit
-    with the programs off."""
-    tha, tparts = _start()
-    runs = {}
-    for on in (True, False):
-        monkeypatch.setattr(twvt, "ITER_PROGRAMS", on)
-        logs = []
-        got, _ = twvt.regularise_sph_particles(
-            _scene(wvt_max_iter=4), tha, tparts, engine="classed",
-            log=lambda stage, **kw: logs.append((stage, kw)))
-        runs[on] = (got, logs)
-
-    def records(on, stage):
-        return [kw for s, kw in runs[on][1] if s == stage]
-    builds = records(True, "wvt_build")
-    done = records(True, "wvt_done")[0]
-    assert all(b["tail_rows"] > 0 for b in builds)
-    assert len(builds) >= done["iterations"] >= 4
-    assert 1 <= done["captured"] < len(builds)
-    assert done["eager"] == 0
-    assert done["replayed"] >= len(builds) - done["captured"]
-    assert records(True, "wvt") == records(False, "wvt")
-    assert torch.equal(runs[True][0].pos, runs[False][0].pos)
-    assert torch.equal(runs[True][0].hsml, runs[False][0].hsml)

@@ -868,128 +868,6 @@ def test_stream_wvt_same_bits_at_a_trimmed_width(dev, kernel):
         assert torch.equal(a, b)
 
 
-def _record_iterations(monkeypatch):
-    """Wrap ``_Loop.iterate`` and ``_Loop.speculate``: every iteration's
-    (loop, state, arguments, outputs, whether a program ran it, whether
-    it was queued ahead)."""
-    from toycluster_tpu_torch.models import wvt
-    calls, window = [], []
-    orig, orig_spec = wvt._Loop.iterate, wvt._Loop.speculate
-
-    def iterate(loop, state, *args):
-        n = loop.replayed
-        out = orig(loop, state, *args)
-        calls.append((loop, state, args, out, loop.replayed > n,
-                      bool(window)))
-        return out
-
-    def speculate(loop, *args):
-        window.append(1)
-        try:
-            return orig_spec(loop, *args)
-        finally:
-            window.pop()
-    monkeypatch.setattr(wvt._Loop, "iterate", iterate)
-    monkeypatch.setattr(wvt._Loop, "speculate", speculate)
-    return calls, orig
-
-
-@pytest.mark.parametrize("engine", ["stream", "classed"])
-def test_program_replays_equal_eager_calls(dev, monkeypatch, engine):
-    """A 200,000-particle M4 scene: every iteration a program replayed
-    (queued ones among them) against the eager body on the same inputs,
-    every output to the bit."""
-    from toycluster_tpu_torch import parse_par_file
-    from toycluster_tpu_torch.models import wvt
-    from toycluster_tpu_torch.pipeline import make_ics
-    calls, orig = _record_iterations(monkeypatch)
-    cfg = parse_par_file(str(_PAR), ntotal=200000, sph_kernel="m4",
-                         wvt_max_iter=8)
-    logs = []
-    make_ics(cfg, device="cuda", engine=engine, write=False,
-             log=lambda stage, **kw: logs.append((stage, kw)))
-    done = [kw for s, kw in logs if s == "wvt_done"][0]
-    replays = [c for c in calls if c[4]]
-    assert done["captured"] >= 1 and len(replays) == done["replayed"] > 0
-    monkeypatch.setattr(wvt, "ITER_PROGRAMS", False)
-    for loop, state, args, out, _, _ in replays:
-        eager = orig(loop, state, *args)
-        assert sorted(eager) == sorted(out)
-        for k, v in eager.items():
-            assert torch.equal(v, out[k]), k
-
-
-def test_replays_in_the_window_pass_the_sync_check(dev, monkeypatch):
-    """The 1e6 par, stream engine, under ``wvt.SYNC_CHECK``: iterations
-    queued ahead run as program replays, and the window holds no host
-    sync."""
-    from toycluster_tpu_torch import parse_par_file
-    from toycluster_tpu_torch.models import wvt
-    from toycluster_tpu_torch.pipeline import make_ics
-    monkeypatch.setattr(wvt, "SYNC_CHECK", True)
-    calls, _ = _record_iterations(monkeypatch)
-    make_ics(parse_par_file(str(_PAR)), device="cuda", write=False,
-             log=lambda stage, **kw: None)
-    assert any(replay and queued for *_, replay, queued in calls)
-    assert torch.cuda.get_sync_debug_mode() == 0
-
-
-def test_far_tail_replays_equal_eager_calls(dev, monkeypatch):
-    """The 1e6 par on the count-class engine, whose every build has
-    far-tail rows (a new state at every iteration): the iterations after
-    the first replay the program of the sticky shapes, each equal to the
-    eager body on the same inputs to the bit, and each replay counts its
-    far-tail calls under their own records."""
-    from toycluster_tpu_torch import parse_par_file
-    from toycluster_tpu_torch.models import wvt
-    from toycluster_tpu_torch.pipeline import make_ics
-    calls, orig = _record_iterations(monkeypatch)
-    wvt.REPLAYED_LAUNCHES.clear()
-    logs = []
-    make_ics(parse_par_file(str(_PAR), wvt_max_iter=4), device="cuda",
-             engine="classed", write=False,
-             log=lambda stage, **kw: logs.append((stage, kw)))
-    builds = [kw for s, kw in logs if s == "wvt_build"]
-    assert builds and all(b["tail_rows"] > 0 for b in builds)
-    replays = [c for c in calls if c[4]]
-    assert len(replays) >= 3 and all(c[1].tail is not None for c in replays)
-    assert (wvt.REPLAYED_LAUNCHES["solve_density_sb"]
-            == wvt.REPLAYED_LAUNCHES["wvt_displacement_sb"] == len(replays))
-    monkeypatch.setattr(wvt, "ITER_PROGRAMS", False)
-    for loop, state, args, out, _, _ in replays:
-        eager = orig(loop, state, *args)
-        assert sorted(eager) == sorted(out)
-        for k, v in eager.items():
-            assert torch.equal(v, out[k]), k
-
-
-@pytest.mark.parametrize("engine", ["stream", "classed"])
-def test_program_launches_equal_eager_launches(dev, monkeypatch, engine):
-    """The same run with the programs on and off launches every kernel
-    as often, and gives the same relaxed gas to the bit; with them on,
-    replays made some of the launches."""
-    from toycluster_tpu_torch import parse_par_file
-    from toycluster_tpu_torch.models import wvt
-    from toycluster_tpu_torch.pipeline import make_ics
-    kernels = (sp.stream_wvt, sp.stream_curl, cp.solve_density,
-               cp.wvt_displacement, cp.fused_wvt)
-    cfg = parse_par_file(str(_PAR), ntotal=200000, sph_kernel="m4",
-                         wvt_max_iter=8)
-    runs = {}
-    for on in (True, False):
-        monkeypatch.setattr(wvt, "ITER_PROGRAMS", on)
-        for k in kernels:
-            k.launches = 0
-        wvt.REPLAYED_LAUNCHES.clear()
-        _, parts = make_ics(cfg, device="cuda", engine=engine, write=False,
-                            log=lambda stage, **kw: None)
-        runs[on] = ({k.__name__: k.launches for k in kernels},
-                    sum(wvt.REPLAYED_LAUNCHES.values()), parts.pos)
-    assert runs[True][0] == runs[False][0]
-    assert runs[True][1] > 0 and runs[False][1] == 0
-    assert torch.equal(runs[True][2], runs[False][2])
-
-
 @pytest.mark.parametrize("engine", ["stream", "classed"])
 def test_offload_gives_the_same_bits_on_cuda(dev, monkeypatch, engine):
     """``make_ics`` on the 60,000-particle config-4 scene with the
@@ -1050,44 +928,3 @@ def test_topk_sweep_equals_oracle_at_1e6_shapes(dev, rows, width):
     assert torch.equal(got.idx, ref.idx)
     assert torch.equal(got.count, ref.count)
     assert got.overflow == ref.overflow
-
-
-def test_replayed_sweeps_equal_eager_ones(dev):
-    """``blk.Sweeps`` with programs on the card: a two-pass superblock
-    search (its probe and its padded second pass), a block-granular
-    search and a refresh's box pass, each called at two radii or
-    positions and again at the first: the calls after a key's first run
-    replay its CUDA graph (a capture would raise on a host sync inside
-    a sweep), and every call equals the eager one to the bit."""
-    from functools import partial
-
-    from toycluster_tpu_torch.models import sph
-    from toycluster_tpu_torch.ops import blocks as blk
-    bi, rad, sym = _sweep_inputs(dev)
-    nb = bi.n_blocks
-    sweeps = blk.Sweeps(programs=True)
-    ids = torch.arange(nb, dtype=torch.int32, device=dev)
-    n = bi.order.shape[0]
-
-    def calls(sw, scale, memo):
-        s_rad, s_sym = rad * scale, sym * scale
-        c = blk.find_candidates_super(bi, ids, s_rad, s_sym, cusp.BOX,
-                                      max_cand=384, memo=memo, sweeps=sw)
-        b = blk.find_candidates(bi, s_rad, cusp.BOX, max_cand=512,
-                                radius_sym=s_sym, sweeps=sw)
-        boxes = blk.run_sweep(sw, ("boxes",), partial(
-            sph._refresh_boxes, n_padded=bi.n_padded, boxsize=cusp.BOX),
-            (bi.pos[:n] * scale % cusp.BOX,), sweep=False)
-        return (c.idx, c.count, c.overflow, b.idx, b.count, b.sb_count,
-                b.overflow, b.sb_overflow) + tuple(boxes)
-
-    memo = {}
-    for scale in (1.0, 0.8, 1.0):
-        got = calls(sweeps, scale, memo)
-        ref = calls(None, scale, {})
-        for a, b in zip(got, ref):
-            assert torch.equal(a, b) if torch.is_tensor(a) else a == b
-    n_sweeps, replayed, made = sweeps.tally()
-    assert got[2] + 384 > 256   # rows over the probe: a second pass
-    assert len(made) == 4 and all(m["graph"] for m in made)
-    assert replayed == 8 and n_sweeps == 9

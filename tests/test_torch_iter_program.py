@@ -1,16 +1,13 @@
-"""The WVT loop's iteration programs (``models/wvt.py``: ``_Loop.body``,
-``_IterProgram``, ``_Loop.make_program``, ``_Loop.programs``), the
-counterpart of the JAX package's whole-iteration program
-(``toycluster_tpu/models/wvt.py`` ``_get_iter_fn``, ``_ITER_FN_CACHE``),
-on the CPU, where a program runs the body on its static buffers.
+"""The WVT loop's iteration (``models/wvt.py``: ``_Loop.body`` and
+``_Loop.iterate``), the counterpart of the JAX package's whole-iteration
+program (``toycluster_tpu/models/wvt.py`` ``_get_iter_fn``), on the CPU.
 
-The scene: the JAX make_positions at ntotal = 3,000 (1,500 gas), WC6,
-seed 5, on both engines.  The body with its iteration index and margin
-as 0-d tensors against the iteration with Python branches on them (the
-loop before the programs), to the bit; outputs of an earlier run that a
-later run leaves alone; when a program is made, reused and left alone;
-the speculation window, which may not make one; and whole relaxations
-with the programs on and off, equal to the bit.
+The scene: the JAX make_positions at ntotal = 3,000 (1,500 gas), seed 5,
+on both engines, WC6 (and M4 for the body).  The body with its
+iteration index and margin as 0-d tensors against the iteration with
+Python branches on them, to the bit; ``iterate`` (the Python margin and
+index filled into the loop's 0-d scalars) against the body; outputs of
+an earlier iteration that a later one leaves alone.
 
 The pair kernels' plain versions are deterministic functions of their
 inputs, so the tests memoise them on the bytes of every argument: a call
@@ -67,7 +64,7 @@ def _start():
 
 
 def _port_scene(**more):
-    return build_scene(parse_par_file(PAR, **SMALL, **more))
+    return build_scene(parse_par_file(PAR, **{**SMALL, **more}))
 
 
 # ------------------------------------------------------- memoised kernels
@@ -101,10 +98,10 @@ def memo(monkeypatch):
 
 # ------------------------------------------------------------- the set-up
 
-def _loop(engine, log=None):
+def _loop(engine, kernel="wc6"):
     tha, tparts = _start()
-    return twvt._Loop(_port_scene(), tha, tparts.n_gas, engine, CPU,
-                      log or (lambda stage, **kw: None))
+    return twvt._Loop(_port_scene(sph_kernel=kernel), tha, tparts.n_gas,
+                      engine, CPU, lambda stage, **kw: None)
 
 
 def _build(L, pos_gas):
@@ -118,13 +115,13 @@ def _build(L, pos_gas):
 
 
 @lru_cache(maxsize=None)
-def _state(engine):
+def _state(engine, kernel="wc6"):
     """(structure, loop arrays in its order): a warm h on half the lanes
     (the other half takes the cold margin), a predicted model density on
     those, a tenth of the lanes saturated, err_last 0 (so the step
     shrinks from it = 2 on)."""
     tha, tparts = _start()
-    L = _loop(engine)
+    L = _loop(engine, kernel)
     n = tparts.n_gas
     state = _build(L, tparts.pos[:n].clone())
     pos_gas = state.index.pos[:n]
@@ -147,10 +144,6 @@ def _iterate(L, state, inputs, margin_w, it):
                      fac_gas, step, err_last, it)
 
 
-def _programs(L):
-    return list(L.programs.values())
-
-
 def _equal(a, b):
     assert sorted(a) == sorted(b)
     for k in a:
@@ -161,9 +154,8 @@ def _equal(a, b):
 
 def _python_iterate(L, state, pos_gas, h_prev, rhom_prev, sat_mask,
                     margin_w, fac_gas, step, err_last, it):
-    """The iteration as the loop ran it before the programs: the margin,
-    the step shrink and the accept band chosen by Python branches on
-    ``margin_w`` and ``it``."""
+    """The iteration with the margin, the step shrink and the accept band
+    chosen by Python branches on ``margin_w`` and ``it``."""
     n_gas = L.n_gas
     nb = state.index.n_blocks
     n_padded = nb * tblk.BLOCK
@@ -232,14 +224,17 @@ def _python_iterate(L, state, pos_gas, h_prev, rhom_prev, sat_mask,
 @pytest.mark.parametrize("it", [0, 1, 2, 3, 5])
 @pytest.mark.parametrize("margin_w", [1.02, 1.25])
 @pytest.mark.parametrize("engine", ENGINES)
-def test_body_with_device_scalars_equals_python_branches(memo, engine,
-                                                         margin_w, it):
+@pytest.mark.parametrize("kernel", ["wc6", "m4"])
+def test_body_with_device_scalars_equals_python_branches(memo, kernel,
+                                                         engine, margin_w,
+                                                         it):
     """``body`` with the index and the margin as 0-d tensors, against
-    the Python branches, every output to the bit; the step shrinks from
-    it = 2 on."""
-    state, inputs = _state(engine)
+    the Python branches, every output to the bit, with each SPH kernel;
+    the step shrinks from it = 2 on."""
+    state, inputs = _state(engine, kernel)
     pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step, err_last = inputs
-    L = _loop(engine)
+    L = _loop(engine, kernel)
+    assert L.kernel == kernel
     sels = L.selections(state) if engine == "classed" else None
     got = L.body(state, sels, pos_gas, h_prev, rhom_prev, sat_mask,
                  torch.tensor(margin_w, dtype=F32), fac_gas, step, err_last,
@@ -250,205 +245,42 @@ def test_body_with_device_scalars_equals_python_branches(memo, engine,
     assert torch.equal(got["step_new"], step * 0.8 if it > 1 else step)
 
 
-# ------------------------------------------------- making and reusing them
+# ------------------------------------------------------------- the one path
 
 @pytest.mark.parametrize("engine", ENGINES)
 def test_first_run_eager_then_program_same_bits(memo, engine):
-    """The first iteration of a shape runs eagerly and makes the program;
-    the program's run on the same inputs gives the same bits, on its
-    static buffers (the inputs and the dynamic scalars copied in)."""
+    """``iterate`` at a Python margin and index fills them into the
+    loop's 0-d scalars and runs ``body`` on them: every output equal to
+    ``body`` on the same scalars to the bit, in one ``wvt_step`` span of
+    kind "eager"."""
     state, inputs = _state(engine)
     L = _loop(engine)
-    eager = _iterate(L, state, inputs, 1.02, 3)
-    assert (L.captured, L.replayed, L.eager) == (1, 0, 0)
-    (prog,) = _programs(L)
-    assert prog.graph is None       # the CPU runs the body on the buffers
-    again = _iterate(L, state, inputs, 1.02, 3)
-    assert (L.captured, L.replayed) == (1, 1)
-    _equal(again, eager)
-    for buf, x in zip(prog.inputs, inputs):
-        assert torch.equal(buf, x) and buf is not x
-    assert int(prog.it) == 3 and float(prog.margin) == float(np.float32(1.02))
-    assert torch.equal(prog.lists[0], state.cand.idx)
+    got = _iterate(L, state, inputs, 1.02, 3)
+    assert L.it_d.dtype == torch.int32 and int(L.it_d) == 3
+    assert L.margin_d.dtype == F32
+    assert float(L.margin_d) == float(np.float32(1.02))
+    sels = L.selections(state) if engine == "classed" else None
+    ref = L.body(state, sels, *inputs[:4], torch.tensor(1.02, dtype=F32),
+                 *inputs[4:], torch.tensor(3, dtype=torch.int32))
+    _equal(got, ref)
+    assert [(s["name"], s["it"], s["kind"]) for s in L.spans.take()] == [
+        ("wvt_step", 3, "eager")]
 
 
 @pytest.mark.parametrize("engine", ENGINES)
 def test_earlier_outputs_survive_a_later_run(memo, engine):
-    """Outputs are cloned out: a later run of the same program (another
-    index, so another step and move) leaves an earlier run's alone."""
+    """A later iteration (another index, so another step and move, with
+    the loop's 0-d scalars filled anew) leaves an earlier one's outputs
+    alone: none of them is a view of those scalars or of the inputs, as
+    an iteration queued ahead (``speculate``) needs."""
     state, inputs = _state(engine)
     L = _loop(engine)
-    _iterate(L, state, inputs, 1.02, 1)
     first = _iterate(L, state, inputs, 1.02, 1)
     kept = {k: v.clone() for k, v in first.items()}
-    later = _iterate(L, state, inputs, 1.02, 5)
-    assert (L.captured, L.replayed) == (1, 2)
+    later = _iterate(L, state, inputs, 1.25, 5)
     _equal(first, kept)
-    (prog,) = _programs(L)
+    held = {x.data_ptr() for x in inputs + (L.it_d, L.margin_d)}
     for k, v in first.items():
-        assert v.data_ptr() not in {b.data_ptr() for b in prog.inputs}
+        assert v.data_ptr() not in held, k
     assert not torch.equal(first["step_new"], later["step_new"])
     assert not torch.equal(first["pos_new"], later["pos_new"])
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-def test_index_and_margin_make_no_new_program(memo, engine):
-    """Iterations at other indices and margins run the one program."""
-    state, inputs = _state(engine)
-    L = _loop(engine)
-    for it, margin_w in ((0, 1.25), (1, 1.02), (2, 1.1), (3, 1.02)):
-        _iterate(L, state, inputs, margin_w, it)
-    assert (L.captured, L.replayed, L.eager) == (1, 3, 0)
-    assert len(_programs(L)) == 1
-
-
-def test_refresh_at_the_same_width_reuses_the_program(memo):
-    """Stream engine: a list refresh at the same trimmed width runs the
-    program (its lists copied in), a wider list makes a new one, with
-    the same bits (the -1 padding is not read)."""
-    state, inputs = _state("stream")
-    L = _loop("stream")
-    out = _iterate(L, state, inputs, 1.02, 0)
-    pos2 = out["pos_new"]
-    hm_w = (twvt._metric_hsml(out["rho_model"], L.mpart, L.desnngb)
-            * L.boxsize * twvt.SYM_MARGIN)
-    s2 = tsph.refresh_candidates(state, pos2, hm_w, L.boxsize,
-                                 widths=L.widths)
-    assert s2.max_cand == state.max_cand
-    inputs2 = (pos2, out["hsml"], out["rho_model"]) + inputs[3:]
-    ref = _iterate(L, s2, inputs2, 1.02, 1)
-    assert (L.captured, L.replayed) == (1, 1)
-    (prog,) = _programs(L)
-    assert torch.equal(prog.lists[0], s2.cand.idx)
-    assert torch.equal(prog.lists[1], s2.cand.count)
-    idx = s2.cand.idx
-    s3 = s2._replace(cand=s2.cand._replace(idx=torch.cat(
-        [idx, torch.full_like(idx[:, :1], -1)], dim=1)))
-    wide = _iterate(L, s3, inputs2, 1.02, 1)
-    assert (L.captured, L.replayed) == (2, 1)
-    assert len(_programs(L)) == 2
-    _equal(wide, ref)
-
-
-def test_new_classed_shape_makes_a_new_program(memo, monkeypatch):
-    """Count-class engine: a rebuild with the same class shape runs the
-    program, another class shape (a narrower first width) makes a new
-    one; at most PROGRAMS_LIVE programs stay."""
-    state, inputs = _state("classed")
-    L = _loop("classed")
-    _iterate(L, state, inputs, 1.02, 0)
-    n = L.n_gas
-    same = _build(L, inputs[0])
-    assert L.program_key(same, L.selections(same)) == L.program_key(
-        state, L.selections(state))
-    _iterate(L, same, inputs, 1.02, 1)
-    assert (L.captured, L.replayed) == (1, 1)
-    monkeypatch.setattr(tsph, "MAX_CAND_START", 64)
-    narrow = _build(L, inputs[0])
-    assert narrow.max_cand == 64 and narrow.tail is None
-    _iterate(L, narrow, inputs, 1.02, 2)
-    assert (L.captured, L.replayed) == (2, 1)
-    monkeypatch.setattr(tsph, "MAX_CAND_START", 32)
-    narrower = _build(L, inputs[0])
-    assert narrower.tail is None and n == inputs[0].shape[0]
-    _iterate(L, narrower, inputs, 1.02, 3)
-    assert L.captured == 3
-    assert len(_programs(L)) == twvt.PROGRAMS_LIVE == 2
-
-
-@pytest.mark.parametrize("rule", ["tail", "large", "off"])
-def test_eager_rules(memo, monkeypatch, rule):
-    """More than the engine's PROGRAM_MAX_GAS gas, or ITER_PROGRAMS off: the
-    iteration runs eagerly, no program is made, and the rule is logged
-    once.  "tail" is no rule: a count-class state with far-tail rows
-    makes a program at its first iteration and replays it at the next,
-    with the far-tail calls' launches counted apart."""
-    engine = "classed" if rule == "tail" else "stream"
-    if rule == "tail":
-        monkeypatch.setattr(tsph, "MAX_CAND_START", 4)
-        monkeypatch.setattr(tsph, "MAX_CAND_CAP", 4)
-    if rule == "large":
-        monkeypatch.setitem(twvt.PROGRAM_MAX_GAS, engine, 1000)
-    if rule == "off":
-        monkeypatch.setattr(twvt, "ITER_PROGRAMS", False)
-    logs = []
-    L = _loop(engine, log=lambda stage, **kw: logs.append((stage, kw)))
-    _, inputs = _state(engine)
-    state = _build(L, inputs[0])
-    assert (state.tail is not None) == (rule == "tail")
-    for it in (0, 1):
-        _iterate(L, state, inputs, 1.02, it)
-    if rule == "tail":
-        assert (L.captured, L.replayed, L.eager) == (1, 1, 0)
-        (prog,) = _programs(L)
-        assert prog.state.tail is not None
-        assert [s for s, _ in logs] == ["wvt_graph"]
-        assert sum(L.sb_launches.values()) == 0   # no kernel on the CPU
-        return
-    assert (L.captured, L.replayed, L.eager) == (0, 0, 2)
-    assert _programs(L) == []
-    assert logs == [("wvt_eager", dict(it=0, rule=rule))]
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-def test_capture_inside_the_window_raises(memo, engine):
-    """``speculate`` may run a program but not make one: without a
-    program of the shape it raises; once the iteration before made it,
-    the queued iteration runs it."""
-    state, inputs = _state(engine)
-    L = _loop(engine)
-    pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step, err_last = inputs
-    prev = dict(pos_new=pos_gas, hsml=h_prev, rho_model=rhom_prev,
-                fac_new=fac_gas, step_new=step, err_mean=err_last)
-    sat_false = torch.zeros_like(sat_mask)
-    with pytest.raises(RuntimeError, match="speculation window"):
-        L.speculate(state, prev, 1.02, sat_false, 1)
-    assert (L.captured, L.replayed, L.eager, L.in_window) == (0, 0, 0, False)
-    out = _iterate(L, state, inputs, 1.02, 0)
-    L.speculate(state, out, 1.02, sat_false, 1)
-    assert (L.captured, L.replayed) == (1, 1)
-
-
-# ---------------------------------------------- whole relaxations, on / off
-
-@pytest.mark.parametrize("engine", ENGINES)
-def test_programs_on_and_off_give_the_same_relaxation(memo, monkeypatch,
-                                                      engine):
-    """Three iterations (speculation on) with ITER_PROGRAMS on and off:
-    the same wvt records and the same relaxed gas, bit for bit; with
-    programs on the iterations after the first ran a program, with them
-    off none, and each relaxation freed its programs."""
-    tha, tparts = _start()
-    loops, make = [], twvt._Loop.make_program
-
-    def make_program(loop, *args):
-        loops.append(loop)
-        return make(loop, *args)
-    monkeypatch.setattr(twvt._Loop, "make_program", make_program)
-    runs = {}
-    for on in (True, False):
-        monkeypatch.setattr(twvt, "ITER_PROGRAMS", on)
-        logs = []
-        got, _ = twvt.regularise_sph_particles(
-            _port_scene(wvt_max_iter=3), tha, tparts, engine=engine,
-            log=lambda stage, **kw: logs.append((stage, kw)))
-        runs[on] = (got, logs)
-    assert loops and all(not loop.programs and not loop.sweeps.programs
-                         for loop in loops)
-
-    def records(logs, stage):
-        return [kw for s, kw in logs if s == stage]
-    assert records(runs[True][1], "wvt") == records(runs[False][1], "wvt")
-    assert torch.equal(runs[True][0].pos, runs[False][0].pos)
-    assert torch.equal(runs[True][0].hsml, runs[False][0].hsml)
-    on = records(runs[True][1], "wvt_done")[0]
-    off = records(runs[False][1], "wvt_done")[0]
-    assert on["captured"] >= 1 and on["replayed"] >= 1 and on["eager"] == 0
-    graphs = records(runs[True][1], "wvt_graph")
-    assert len([g for g in graphs if g["kind"] == "iteration"]) \
-        == on["captured"]
-    # the builds' candidate sweeps made programs of their own
-    assert any(g["kind"] == "sweep" for g in graphs)
-    assert not records(runs[False][1], "wvt_graph")
-    assert (off["captured"], off["replayed"]) == (0, 0)
-    assert off["eager"] == on["captured"] + on["replayed"]

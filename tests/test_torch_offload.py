@@ -1,9 +1,8 @@
 """The WVT loop's large-run memory path (``models/wvt.py``: the holder
 protocol, ``offload_enabled``, ``_Parked``), the counterpart of the JAX
 loop's (``toycluster_tpu/models/wvt.py:656-717, :1096-1113``,
-``toycluster_tpu/pipeline.py:108-116``), the per-engine program-size
-limit (``wvt.PROGRAM_MAX_GAS``) and the CTA split of padded count
-classes (``stream_pair.padded_cluster``), on the CPU.
+``toycluster_tpu/pipeline.py:108-116``) and the CTA split of padded
+count classes (``stream_pair.padded_cluster``), on the CPU.
 
 Each case sets TOYCLUSTER_WVT_OFFLOAD_N, the JAX package's variable,
 which the port reads too.  The scene: the JAX make_positions at ntotal
@@ -274,20 +273,6 @@ def test_checkpoint_with_offload_resumes_to_the_same_bits(start, memo,
     assert _records(logs_on, "wvt") == _records(logs_off, "wvt")
     assert [r["it"] for r in _records(logs_on, "wvt")] == [2, 3]
     _assert_same_particles(on, off)
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-def test_eager_rule_at_each_engines_limit(engine):
-    """Each engine runs eagerly by the rule "large" just above its own
-    program-size limit and not at it."""
-    limit = twvt.PROGRAM_MAX_GAS[engine]
-    assert set(twvt.PROGRAM_MAX_GAS) == set(tsph.ENGINES)
-    L = twvt._Loop.__new__(twvt._Loop)
-    L.engine = engine
-    for n_gas, rule in ((limit - 1, None), (limit, None),
-                        (limit + 1, "large")):
-        L.n_gas = n_gas
-        assert L.eager_rule() == rule
 
 
 def test_offload_gives_the_same_bits_on_config_5(memo, monkeypatch):

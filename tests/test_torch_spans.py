@@ -15,7 +15,6 @@ import pytest
 import torch
 
 from toycluster_tpu_torch.config import parse_par_file
-from toycluster_tpu_torch.models import wvt
 from toycluster_tpu_torch.ops import blocks as blk
 from toycluster_tpu_torch.pipeline import make_ics
 from toycluster_tpu_torch.utils import logging as tlog
@@ -26,12 +25,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAR = os.path.join(ROOT, "toycluster_tpu_torch", "data", "cluster.par")
 ENGINES = ("stream", "classed")
 # spans that no record is named after
-SPAN_ONLY = ("wvt_loop", "wvt_iteration", "wvt_sweep", "wvt_capture",
-             "wvt_step", "wvt_wait", "wvt_release", "velocity_table",
-             "velocity_fE", "velocity_fE_integral", "velocity_cdf")
+SPAN_ONLY = ("wvt_loop", "wvt_iteration", "wvt_sweep", "wvt_step",
+             "wvt_wait", "velocity_table", "velocity_fE",
+             "velocity_fE_integral", "velocity_cdf")
 WVT_NAMES = {"wvt_loop", "wvt_iteration", "wvt_build", "wvt_refresh",
-             "wvt_sweep", "wvt_capture", "wvt_step", "wvt_wait",
-             "wvt_release"}
+             "wvt_sweep", "wvt_step", "wvt_wait"}
 PAIRS = blk.BLOCK * blk.BLOCK
 
 
@@ -67,8 +65,7 @@ def test_velocities_and_wvt_done_carry_spans(run):
                                         "velocity_cdf"}
     assert {s["name"] for s in loop} >= {"wvt_loop", "wvt_iteration",
                                          "wvt_build", "wvt_sweep",
-                                         "wvt_capture", "wvt_step",
-                                         "wvt_wait", "wvt_release"}
+                                         "wvt_step", "wvt_wait"}
     assert {s["name"] for s in loop} <= WVT_NAMES
     # the spans are plain JSON, as a log's receiver may keep them
     json.dumps(vel + loop)
@@ -117,18 +114,15 @@ def test_the_wvt_spans_nest_as_the_loop_runs(run):
     name = [s["name"] for s in spans]
     assert name[0] == "wvt_loop" and name.count("wvt_loop") == 1
     assert spans[0]["seconds"] == done["seconds"]
-    # the programs are freed after the loop's seconds, in a root of its own
-    assert name[-1] == "wvt_release" and name.count("wvt_release") == 1
-    assert spans[-1]["parent"] == -1
-    assert spans[-1]["t0"] >= spans[0]["t0"] + spans[0]["seconds"]
+    # one root: every span after the first lies below it
+    assert all(s["parent"] >= 0 for s in spans[1:])
     parent_of = {"wvt_iteration": {"wvt_loop"},
                  "wvt_build": {"wvt_iteration"},
                  "wvt_refresh": {"wvt_iteration"},
                  "wvt_step": {"wvt_iteration"},
                  "wvt_wait": {"wvt_iteration"},
-                 "wvt_sweep": {"wvt_build", "wvt_refresh"},
-                 "wvt_capture": {"wvt_sweep", "wvt_step"}}
-    for s in spans[1:-1]:
+                 "wvt_sweep": {"wvt_build", "wvt_refresh"}}
+    for s in spans[1:]:
         assert name[s["parent"]] in parent_of[s["name"]]
     its = [s["it"] for s in spans if s["name"] == "wvt_iteration"]
     assert its == list(range(len(its)))
@@ -136,29 +130,20 @@ def test_the_wvt_spans_nest_as_the_loop_runs(run):
     kinds = {s["name"]: set() for s in spans}
     for s in spans:
         kinds[s["name"]].add(s.get("kind"))
-    assert kinds["wvt_step"] <= {"eager", "replay", "queued"}
-    assert kinds["wvt_sweep"] <= {"eager", "replay", "capture"}
-    assert kinds["wvt_capture"] == {"sweep", "iteration"}
-    # a sweep's capture lies below a sweep of kind "capture"
-    for s in spans:
-        if s["name"] == "wvt_capture" and s["kind"] == "sweep":
-            assert spans[s["parent"]]["kind"] == "capture"
-    # the loop's programs are on: the speculated iteration is queued
+    assert "eager" in kinds["wvt_step"]
+    assert kinds["wvt_step"] <= {"eager", "queued"}
+    assert kinds["wvt_sweep"] == {None}
+    # an iteration queued ahead is spanned as such
     assert (done["speculated"] > 0) == ("queued" in kinds["wvt_step"])
 
 
 def test_records_take_their_seconds_from_the_spans(run):
     spans = _spans(run, "wvt_done")
-    for stage, match in (("wvt_build", None), ("wvt_refresh", None),
-                         ("wvt_graph", "iteration"), ("wvt_graph", "sweep")):
-        recs = [kw for st, kw in run["logs"] if st == stage
-                and (match is None or kw["kind"] == match)]
-        name = stage if match is None else "wvt_capture"
-        got = [s for s in spans if s["name"] == name
-               and (match is None or s["kind"] == match)]
+    for stage in ("wvt_build", "wvt_refresh"):
+        recs = [kw for st, kw in run["logs"] if st == stage]
+        got = [s for s in spans if s["name"] == stage]
         assert [r["seconds"] for r in recs] == [s["seconds"] for s in got]
-        if stage != "wvt_graph":
-            assert [r["it"] for r in recs] == [s["it"] for s in got]
+        assert [r["it"] for r in recs] == [s["it"] for s in got]
     builds = [kw for st, kw in run["logs"] if st == "wvt_build"]
     assert builds and [b["attempt"] for b in builds] == [
         s["attempt"] for s in spans if s["name"] == "wvt_build"]
@@ -185,22 +170,6 @@ def test_pairs_walked_counts_whole_blocks_of_the_needed_pairs(run):
     assert walked % PAIRS == 0
     assert walked >= (run["n_gas"] * done["iterations"]
                       * run["cfg"].desnngb)
-
-
-def test_the_loop_without_programs_counts_the_same_pairs(run, monkeypatch):
-    """Iteration and sweep programs (run on their buffers here) add to
-    the counter as the eager calls do: the same relaxation without them
-    walks as many pairs, and its sweeps are all eager."""
-    monkeypatch.setattr(wvt, "ITER_PROGRAMS", False)
-    logs = []
-    make_ics(run["cfg"], device="cpu", engine=run["engine"], write=False,
-             log=lambda stage, **kw: logs.append((stage, kw)))
-    done = [kw for st, kw in logs if st == "wvt_done"][0]
-    assert done["pairs_walked"] == _one(run, "wvt_done")["pairs_walked"]
-    kinds = {(s["name"], s.get("kind")) for s in done["spans"]}
-    assert ("wvt_sweep", "eager") in kinds
-    assert not {k for k in kinds if k[0] == "wvt_capture"}
-    assert not [st for st, _ in logs if st == "wvt_graph"]
 
 
 def test_offload_spans_only_where_the_loop_parks(run, monkeypatch):

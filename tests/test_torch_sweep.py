@@ -5,8 +5,7 @@ selection by top-k against the full stable sort it replaced (the oracle
 and the sticky second-pass rows against the JAX package's
 ``_LAST_MAX_CAND`` and ``_SUBSET_MEMO`` over the same sequences of calls;
 the builders' lists equal to those of the oracle's sweep; and the
-sweeps' program wrapper (``blk.Sweeps``), which on the CPU runs each
-function on its static buffers, equal to direct calls.
+sweeps' runner (``blk.Sweeps``) equal to direct calls.
 
 Against the JAX package the lists are compared as sets where the order
 of equal-distance superblocks could differ (float differences in d2), as
@@ -285,7 +284,7 @@ def _build(kind, pos, h, monkeypatch):
     a stream build, a stream build then a refresh of moved positions, or
     a count-class build with far-tail rows and a two-pass far-tail
     search (narrow budgets, the probe cut to 2)."""
-    widths, sweeps = {}, tblk.Sweeps(programs=True)
+    widths, sweeps = {}, tblk.Sweeps()
     if kind == "classed":
         monkeypatch.setattr(tsph, "MAX_CAND_START", 16)
         monkeypatch.setattr(tsph, "MS_CAP", 8)
@@ -321,7 +320,7 @@ def test_builders_equal_their_oracle_lists(kind, monkeypatch):
     _assert_states_equal(got, _build(kind, pos, h, monkeypatch))
 
 
-# ------------------------------------------------- the program wrapper
+# ------------------------------------------------------- the sweeps' runner
 
 def _calls(kind, bi, sweeps, scale, memo):
     """One call of ``kind`` (a superblock search past the probe with its
@@ -339,21 +338,20 @@ def _calls(kind, bi, sweeps, scale, memo):
                                  sweeps=sweeps)
         return c.idx, c.count, c.sb_count, c.overflow, c.sb_overflow
     pos = bi.pos[:bi.order.shape[0]] * scale % BOX
-    return tblk.run_sweep(sweeps, ("boxes",), partial(
+    return tblk.run_sweep(sweeps, partial(
         tsph._refresh_boxes, n_padded=bi.n_padded, boxsize=BOX), (pos,),
         sweep=False)
 
 
 @pytest.mark.parametrize("kind", ["super", "blocks", "boxes"])
 def test_program_wrapper_equals_direct_calls(kind, monkeypatch):
-    """``blk.Sweeps`` with programs on the CPU: the first call of a key
-    runs eagerly and makes the program, later calls on other inputs run
-    it on its static buffers; every call equals a direct one, and a
-    returned result is a copy that a later call leaves alone.  Without
-    programs the calls run directly and make none."""
+    """``blk.Sweeps`` runs each sweep as the direct call does: every
+    call equals a direct one, a result is left alone by a later call,
+    the sweeps are counted (a refresh's box pass is no sweep) and each
+    is one ``wvt_sweep`` span of the runner's ``spans``."""
     monkeypatch.setattr(tblk, "_K_PROBE", 2)
     bi = tblk.build_blocks(torch.from_numpy(_cusp(5000, 5000)), BOX)
-    sweeps, memo = tblk.Sweeps(programs=True), {}
+    sweeps, memo = tblk.Sweeps(), {}
     outs = []
     for scale in (1.0, 0.5, 1.0):
         got = _calls(kind, bi, sweeps, scale, memo)
@@ -363,22 +361,20 @@ def test_program_wrapper_equals_direct_calls(kind, monkeypatch):
         outs.append(got)
     for a, b in zip(outs[0], outs[2]):
         assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)
-    n, replayed, made = sweeps.tally()
     per_call = {"super": 2, "blocks": 1, "boxes": 1}[kind]
-    assert len(made) == per_call and replayed == 2 * per_call
-    assert n == (0 if kind == "boxes" else 3 * per_call)
-    assert not any(m["graph"] for m in made)
-    eager = tblk.Sweeps()
-    _calls(kind, bi, eager, 1.0, {})
-    assert not eager.programs and eager.tally()[1:] == (0, [])
+    assert sweeps.tally() == (0 if kind == "boxes" else 3 * per_call, 0)
+    assert sweeps.tally() == (0, 0)
+    spans = sweeps.spans.take()
+    assert [s["name"] for s in spans] == ["wvt_sweep"] * 3 * per_call
+    assert all(s["parent"] == -1 for s in spans)
 
 
 # ------------------------------------------------ the loop that holds them
 
 @pytest.mark.parametrize("engine", ["stream", "classed"])
 def test_loop_is_freed_without_the_cycle_collector(engine):
-    """A WVT loop object (``_Loop``: its sweeps, their programs and
-    capture pool, the state its selections hold) holds no reference to
+    """A WVT loop object (``_Loop``: its sweeps, its spans, the state its
+    selections hold) holds no reference to
     itself: it is freed as its last reference goes, not at the cycle
     collector's next pass, so a relaxation's lists do not outlive it on
     the card."""
@@ -395,7 +391,7 @@ def test_loop_is_freed_without_the_cycle_collector(engine):
     scene = build_scene(parse_par_file(par, ntotal=3000))
     loop = twvt._Loop(scene, halo_arrays_from_scene(scene, "cpu"), 1500,
                       engine, torch.device("cpu"), lambda stage, **kw: None)
-    assert loop.sweeps.on
+    assert loop.sweeps.spans is loop.spans
     ref = weakref.ref(loop)
     gc.disable()
     try:
@@ -615,30 +611,3 @@ def test_torch_sums_three_axes_as_the_kernel_does(dev, shape):
         shape + (3,)).astype(np.float32)).to(dev) * 100
     assert torch.equal(g.sum(dim=-1),
                        (g[..., 0] + g[..., 2]) + g[..., 1])
-
-
-@pytest.mark.cuda
-def test_replayed_sweeps_count_their_launches(dev, card_scenes):
-    """Through ``Sweeps`` with programs, a two-pass search's sweeps run
-    the kernel eagerly at a key's first call and by replay after: the
-    launch counter counts a replayed sweep as the eager one, the capture
-    none, and the lists equal direct calls'."""
-    bi, rad, sym = _scene_of(card_scenes, "cusp", False, dev)
-    rows = _rows(bi.n_blocks).to(dev)
-    sweeps, memo = tblk.Sweeps(programs=True), {}
-    counts = []
-    for scale in (5.0, 4.0, 5.0):
-        n0 = tblk.super_sweep.launches
-        got = tblk.find_candidates_super(bi, rows, rad * scale, sym * scale,
-                                         BOX, max_cand=512, memo=memo,
-                                         sweeps=sweeps)
-        counts.append(tblk.super_sweep.launches - n0)
-        ref = tblk.find_candidates_super(bi, rows, rad * scale, sym * scale,
-                                         BOX, max_cand=512)
-        assert torch.equal(got.idx, ref.idx)
-        assert torch.equal(got.count, ref.count)
-        assert got.overflow + 512 > tblk._K_PROBE
-    sweeps.settle(dev)
-    n, replayed, made = sweeps.tally()
-    assert counts == [2, 2, 2] and n == 6 and replayed == 4
-    assert len(made) == 2 and all(m["graph"] for m in made)

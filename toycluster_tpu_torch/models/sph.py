@@ -199,8 +199,8 @@ def _sb_candidates(bi, radius, radius_sym, boxsize, widths=None,
     """Superblock candidate search, grown on overflow up to the width
     cap, then cut: with ``widths`` (the width memo of one WVT relaxation,
     a dict) to ``trim_width``, so that a list refresh keeps the width of
-    the lists before it and the relaxation's iteration program
-    (models/wvt.py) its shapes; without it to the widest row's count.
+    the lists before it (the shapes of the JAX package's iteration
+    program); without it to the widest row's count.
     Columns past a row's count are -1 padding, which the kernel does not
     read.  The search starts at SB_WIDTH_START or, with ``widths``, at
     the width the relaxation's last search left there (``SEARCH_KEY``):
@@ -269,9 +269,8 @@ def refresh_candidates(state: NeighbourState, pos_sorted_gas,
     n_gas = pos_sorted_gas.shape[0]
     pad = bi.n_padded - n_gas
     bb_lo, bb_hi, sb_lo, sb_hi = blk.run_sweep(
-        sweeps, ("boxes", n_gas, bi.n_padded, boxsize),
-        partial(_refresh_boxes, n_padded=bi.n_padded, boxsize=boxsize),
-        (pos_sorted_gas,), sweep=False)
+        sweeps, partial(_refresh_boxes, n_padded=bi.n_padded,
+                        boxsize=boxsize), (pos_sorted_gas,), sweep=False)
     bi2 = bi._replace(bb_lo=bb_lo, bb_hi=bb_hi, sb_lo=sb_lo, sb_hi=sb_hi)
     radius = state.h_cap.reshape(nb, blk.BLOCK).amax(dim=1)
     sym = torch.cat([radius_sym_gas,
@@ -289,12 +288,12 @@ def refresh_candidates(state: NeighbourState, pos_sorted_gas,
 def quantize_size(n, nb, m=0, memo=None):
     """The JAX package's ``_quantize_size``: ``n`` rows rounded up onto
     the grid {nb, nb/4, nb/16, nb/64} (at least 64 rows), so that a
-    class's or the far tail's size, and with it the WVT loop's iteration
-    program, repeats from one build to the next.  ``memo`` (a dict, keyed
-    by (m, nb), m the class width or -1 for the far tail) makes the size
-    sticky: it never shrinks below the size the memo holds while ``n``
-    fits it, and the size is stored back.  Without a memo, the grid
-    alone."""
+    class's or the far tail's size, and with it the JAX package's
+    iteration program, repeats from one build to the next.  ``memo`` (a
+    dict, keyed by (m, nb), m the class width or -1 for the far tail)
+    makes the size sticky: it never shrinks below the size the memo holds
+    while ``n`` fits it, and the size is stored back.  Without a memo,
+    the grid alone."""
     size = max(nb, 64)
     floor = max(n, 64, nb // 64)
     while size // 4 >= floor:
@@ -334,7 +333,7 @@ def build_neighbours_blocks(pos_gas, h_cap_gas, boxsize, *,
     second-pass rows): the list width, the superblock budget and the
     far-tail width start from the ones it holds, grow as above and are
     stored back, never shrinking, so that the relaxation's builds keep
-    the shapes of its iteration program (models/wvt.py).  The JAX
+    their shapes (those of the JAX package's iteration program).  The JAX
     package keeps these memos per process (``_LAST_MAX_CAND``,
     ``_CLASS_SIZE_MEMO``, ``_SUBSET_MEMO``); the port's lives as long as
     the relaxation that holds it.  Without it every build starts from

@@ -36,29 +36,16 @@ and reading this one's scalars holds no host sync.  Speculation is on
 unless TOYCLUSTER_SPECULATE=0 and only up to SPECULATE_MAX_GAS gas
 particles (the JAX package's switch and limit).
 
-The iteration program, as in the JAX loop.  The JAX package compiles an
-iteration (model density, metric, the pair kernels, scatters, error
-statistics, the saturation count) into ONE program, cached by its shapes
-(``_get_iter_fn``, ``_ITER_FN_CACHE``), with the iteration index, margin,
-step and err_last as dynamic inputs.  Here that program is a CUDA graph
-(``_IterProgram``, ``_Loop.make_program``, ``_Loop.programs``): at the
-first iteration of a list shape the iteration runs eagerly and a graph of
-the same body is captured on static buffers; every later iteration of
-that shape, queued ones included, copies its inputs in, replays the graph
-and clones the outputs out, so a replay runs the same kernels on the same
-inputs as the eager call and gives the same bits.  The shapes repeat as
-in the JAX loop: the stream engine's sticky list width
-(``sph.trim_width``) lets a list refresh find the graph it has; the
-count-class engine's sticky list, superblock and far-tail widths and its
-quantized class and far-tail sizes (``sph.build_neighbours_blocks``,
-``sph.classed_selections``, one memo a relaxation) let a build find it,
-far-tail states included, which are rebuilt at every iteration.
-Iterations run eagerly above the engine's PROGRAM_MAX_GAS gas (where a
-replay saves no time or the card's memory runs short) and with
-``ITER_PROGRAMS = False``.  On the CPU a
-program runs the body on its static buffers, without a graph.  The
-candidate sweeps of the builds and list refreshes are programs too, under
-the same rules (``blk.Sweeps``, the counterpart of the JAX package's
+One dispatch path.  The JAX package compiles an iteration (model
+density, metric, the pair kernels, scatters, error statistics, the
+saturation count) into ONE program, cached by its shapes
+(``_get_iter_fn``), with the iteration index, margin, step and err_last
+as dynamic inputs.  Here ``_Loop.body`` is that iteration, with the
+same dynamic inputs as 0-d device tensors, and every iteration, queued
+ones included, launches it eagerly (a replayed CUDA graph of it, measured
+on an H100, saved no time and cost capture time and device memory).  The
+candidate sweeps of the builds and list refreshes run eagerly too
+(``blk.Sweeps``, one function of tensors each, as the JAX package's
 ``jax.jit`` on each sweep): the host reads what a build needs (the widest
 row's count, the rows over the probe) between them.
 
@@ -78,8 +65,6 @@ import contextlib
 import math
 import os
 import time
-import weakref
-from collections import Counter, OrderedDict
 from functools import partial
 
 import numpy as np
@@ -87,14 +72,12 @@ import torch
 
 from .. import constants as const
 from ..ops import blocks as blk
-from ..ops import class_pair as _cp
 from ..ops import stream_pair as _sp
 from ..ops.class_pair import (fused_wvt, pack_fused_sources, pack_sources,
                               solve_density, wvt_displacement)
 from ..ops.stream_pair import stream_wvt
 from ..particles import HaloArrays, Particles
 from ..scene import Scene
-from ..utils.graphs import CapturePool, capture
 from ..utils.logging import Spans, stage_log
 from ..utils.memory import stage_memory
 from . import sph as sph_mod
@@ -132,42 +115,9 @@ SYNC_CHECK = False
 # the scalars an iteration hands the host, in this order (float64)
 SCALARS = ("err_max", "err_mean", "n_sat", "dmax_rel", "p999_rel",
            "n_contract", "step_new")
-# with True (the default) the iterations run through iteration programs
-# (module docstring); with False every iteration runs eagerly
-ITER_PROGRAMS = True
-# above this many gas particles every iteration of an engine runs
-# eagerly, and so do the sweeps of its builds (measured on an NVIDIA H100
-# 80GB HBM3 at 700.00 W).  Stream: the size at which the loop starts to
-# park its set to save memory (OFFLOAD_N); past it an iteration is long
-# enough that a replay saves no time, and the programs cost more memory
-# than the offload saves: config 5 at 5e7 gas made its IC in 40.81 s
-# with them and 40.95 s without, and they raised its peak from 14.13 to
-# 20.52 GiB (137 B a gas particle).  Count-class: half of one 80 GiB
-# card over the engine's own bytes a gas particle, the programs' (static
-# buffers and graph pool) plus the eager peak, each measured by
-# chip_smoke.py: the programs, the sweeps' among them, reserved
-# 674.0-710.9 B more than an eager run at 5e6 gas (step 11, config 4 at
-# 1e7, after empty_cache and reset_peak_memory_stats; 520.9-528.1 B
-# before the sweeps were programs), the eager peak reserved 463.0-470.9
-# B at 5e7 gas (step 6, A2); (710.9 + 470.9) B x 3.5e7 = 38.5 GiB, and
-# 4e7 gas would need 44.0 GiB
-PROGRAM_MAX_GAS = {"stream": 20_000_000, "classed": 35_000_000}
 # at this many gas particles or more the loop keeps on the device only
 # what it reads (``_Parked``): the JAX package's switch and default
 OFFLOAD_N = 20_000_000
-# live iteration programs of a loop: the current key and the one before
-PROGRAMS_LIVE = 2
-# the kernel launches that program replays made, by record name: the
-# kernel's, the far-tail calls' under the kernel's name + "_sb" (the
-# kernels' own ``launches`` counters hold them too)
-REPLAYED_LAUNCHES: Counter = Counter()
-# the hand-written kernels an iteration launches, and those of them that
-# the far-tail rows launch in superblock mode (counted apart, under the
-# kernel's name + "_sb")
-_KERNELS = (_sp.stream_wvt, _cp.solve_density, _cp.wvt_displacement,
-            _cp.fused_wvt)
-_SB_KERNELS = (_cp.solve_density, _cp.wvt_displacement)
-_KERNEL_OF = {k.__name__: k for k in _KERNELS}
 
 
 def percentile(x, q):
@@ -266,17 +216,15 @@ def _warm_ratio(rho_model, rho_model_prev):
 
 
 class _Loop:
-    """Constants of one relaxation, its iteration programs' counts and its
-    width memo (``widths``): the stream engine's sticky list width, or the
-    count-class engine's sticky widths and class and far-tail sizes."""
+    """Constants of one relaxation, its spans, its pair-work counter and
+    its width memo (``widths``): the stream engine's sticky list width, or
+    the count-class engine's sticky widths and class and far-tail
+    sizes."""
 
     # (state, its classed selections), made once a state (``selections``);
-    # the width memo (a loop made without __init__ has none: grid sizes);
-    # the far-tail rows' superblock-mode launches of the eager runs of
-    # ``body``, by record name (a capture sets them back)
+    # the width memo (a loop made without __init__ has none: grid sizes)
     _sels = (None, None)
     widths = None
-    sb_launches = Counter()
     # the pair-work counter (``__init__``): a loop made without it
     # counts no pairs
     pairs = None
@@ -305,37 +253,21 @@ class _Loop:
         # kernel call walked (``count_pairs``), on the device
         self.spans = Spans()
         self.pairs = torch.zeros((), dtype=torch.int64, device=device)
-        # the eager iterations' dynamic scalars (``iterate``)
+        # the iterations' dynamic scalars (``iterate``); True while
+        # ``speculate`` queues an iteration
         self.it_d = torch.zeros((), dtype=torch.int32, device=device)
         self.margin_d = torch.zeros((), dtype=torch.float32, device=device)
-        # programs made, replays, eager iterations; the eager rules logged
-        self.captured = self.replayed = self.eager = 0
-        self.eager_logged = set()
-        # the iteration programs by key, least recently run first (the
-        # counterpart of the JAX package's _ITER_FN_CACHE), the capture
-        # stream and the memory pool of their graphs; True while
-        # ``speculate`` queues an iteration
-        self.programs = OrderedDict()
-        self.graphs = CapturePool()
         self.in_window = False
-        # the candidate sweeps of the builds and list refreshes: programs
-        # under the iteration programs' rules, on the same stream and pool
-        self.sweeps = blk.Sweeps(self.eager_rule() is None, self.graphs,
-                                 spans=self.spans)
+        # the candidate sweeps of the builds and list refreshes
+        self.sweeps = blk.Sweeps(spans=self.spans)
 
-    def sweep_record(self, it):
+    def sweep_record(self):
         """The counts of the sweeps since the last build or refresh, for
-        its record: ``sweeps`` run, programs ``replayed`` and
-        ``captured`` (each made one logged as ``wvt_graph`` of kind
-        "sweep"), and ``sweep_spills``, the rows whose hits overflowed
-        the sweep kernel's on-chip buffer (read in the sweeps' own host
-        reads and at the call's ``settle``)."""
-        spills = self.sweeps.spills
-        n, replayed, made = self.sweeps.tally()
-        for rec in made:
-            self.log("wvt_graph", it=it, kind="sweep", **rec)
-        return dict(sweeps=n, replayed=replayed, captured=len(made),
-                    sweep_spills=spills)
+        its record: ``sweeps`` run and ``sweep_spills``, the rows whose
+        hits overflowed the sweep kernel's on-chip buffer (read in the
+        sweeps' own host reads and at the call's ``settle``)."""
+        n, spills = self.sweeps.tally()
+        return dict(sweeps=n, sweep_spills=spills)
 
     def walk_stats(self, rows, cols, device):
         """A zeroed (rows, cols) int32 ``stats=`` output of a pair kernel
@@ -435,20 +367,13 @@ class _Loop:
                 self.count_pairs(st[0][:, 3] + st[1][:, 3])
             return res
 
-        def tail(ids, sb_rows, sb_cnt):
-            n0 = [k.launches for k in _SB_KERNELS]
-            res = two_pass(ids, sb_rows, True)
-            self.sb_launches = self.sb_launches + Counter(
-                {k.__name__ + "_sb": k.launches - n
-                 for k, n in zip(_SB_KERNELS, n0)})
-            return res
-
         return sph_mod.run_classed(
             state,
             lambda ids, rows, cnt, m: (fused(ids, rows, cnt)
                                        if m <= FUSED_WIDTH else
                                        two_pass(ids, rows, False)),
-            tail, sels=self.selections(state) if sels is None else sels)
+            lambda ids, sb_rows, sb_cnt: two_pass(ids, sb_rows, True),
+            sels=self.selections(state) if sels is None else sels)
 
     def body(self, state, sels, pos_gas, h_prev, rhom_prev, sat_mask,
              margin_d, fac_gas, step, err_last, it_d):
@@ -546,96 +471,23 @@ class _Loop:
                     step_new=step_new, fac_new=fac_new,
                     saturated=saturated[:n_gas], scalars=scalars)
 
-    def eager_rule(self):
-        """Why an iteration runs eagerly, or None: "off" (ITER_PROGRAMS),
-        "large" (more gas than the engine's PROGRAM_MAX_GAS)."""
-        if not ITER_PROGRAMS:
-            return "off"
-        if self.n_gas > PROGRAM_MAX_GAS[self.engine]:
-            return "large"
-        return None
-
-    def program_key(self, state, sels):
-        """The shapes and constants an iteration program is made for:
-        engine, gas, blocks, list width, the classed class shape
-        (``class_shape``) and tail shape (``tail_shape``), kernel,
-        desnngb, cool core and beta."""
-        return (self.engine, self.n_gas, state.index.n_blocks,
-                state.max_cand, class_shape(sels), tail_shape(state),
-                self.kernel, self.desnngb, self.cool_core, self.beta)
-
     def iterate(self, state, pos_gas, h_prev, rhom_prev, sat_mask,
                 margin_w, fac_gas, step, err_last, it):
-        """One WVT iteration (``body``) at the Python margin ``margin_w``
-        and index ``it``: through the iteration program of the state's
-        shape, or eagerly by ``eager_rule``.  Where the shape has no
-        program yet the iteration runs eagerly and the program is made
-        (on a CUDA device captured) after it; inside the speculation
-        window (``speculate``) that raises instead.  Returns ``body``'s
-        dict; queues work and reads nothing back (but the classed
-        selections at a state's first iteration).  Spanned as
-        ``wvt_step`` of kind "queued" (inside the window), "replay" or
-        "eager"."""
-        with self.spans.span("wvt_step", it=it) as span:
-            out, kind = self._iterate(state, pos_gas, h_prev, rhom_prev,
-                                      sat_mask, margin_w, fac_gas, step,
-                                      err_last, it)
-            span["kind"] = "queued" if self.in_window else kind
-        return out
-
-    def _iterate(self, state, pos_gas, h_prev, rhom_prev, sat_mask,
-                 margin_w, fac_gas, step, err_last, it):
-        sels = self.selections(state) if self.engine == "classed" else None
-        inputs = (pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step,
-                  err_last)
-        rule = self.eager_rule()
-        key = None if rule else self.program_key(state, sels)
-        prog = self.programs.get(key)
-        if prog is not None:
-            self.programs.move_to_end(key)
-            self.replayed += 1
-            return prog.run(self, state, sels, inputs, margin_w, it), "replay"
-        if rule is None and self.in_window:
-            raise RuntimeError(
-                f"no iteration program for {key} at it = {it}: a capture "
-                f"inside the speculation window")
-        if rule is not None:
-            self.eager += 1
-            if rule not in self.eager_logged:
-                self.eager_logged.add(rule)
-                self.log("wvt_eager", it=it, rule=rule)
-        self.it_d.fill_(it)
-        self.margin_d.fill_(margin_w)
-        out = self.body(state, sels, pos_gas, h_prev, rhom_prev, sat_mask,
-                        self.margin_d, fac_gas, step, err_last, self.it_d)
-        if rule is None:
-            self.make_program(key, state, sels, inputs, it)
-        return out, "eager"
-
-    def make_program(self, key, state, sels, inputs, it):
-        """Make the program for ``key`` (captured on a CUDA device; the
-        state's first iteration ran eagerly just before, which also
-        loaded the kernels), keep it with the one before it, free older
-        ones, and log ``wvt_graph``.  A new key comes only from a build
-        or a list refresh, whose synchronisation finished every replay
-        of the programs freed here.  On a CUDA device the log also holds
-        ``added_gib``, the device memory the allocator reserved for the
-        program (its static buffers and the growth of the graphs' pool).
-        Spanned as ``wvt_capture`` of kind "iteration"."""
-        with self.spans.span("wvt_capture", kind="iteration") as span:
-            graph = inputs[0].is_cuda
-            reserved = torch.cuda.memory_reserved() if graph else 0
-            while len(self.programs) >= PROGRAMS_LIVE:
-                self.programs.popitem(last=False)
-            prog = _IterProgram(state, sels, inputs)
-            if graph:
-                prog.capture(self)
-            self.programs[key] = prog
-            self.captured += 1
-            added = ({"added_gib": (torch.cuda.memory_reserved() - reserved)
-                      / 2**30} if graph else {})
-        self.log("wvt_graph", it=it, kind="iteration", key=key, graph=graph,
-                 seconds=span["seconds"], kernels=prog.launches, **added)
+        """One WVT iteration: ``body`` at the Python margin ``margin_w``
+        and index ``it``, filled into the loop's 0-d device scalars.
+        Returns ``body``'s dict; queues work and reads nothing back (but
+        the classed selections at a state's first iteration).  Spanned
+        as ``wvt_step`` of kind "queued" (inside the speculation window,
+        ``speculate``) or "eager"."""
+        kind = "queued" if self.in_window else "eager"
+        with self.spans.span("wvt_step", it=it, kind=kind):
+            sels = (self.selections(state) if self.engine == "classed"
+                    else None)
+            self.it_d.fill_(it)
+            self.margin_d.fill_(margin_w)
+            return self.body(state, sels, pos_gas, h_prev, rhom_prev,
+                             sat_mask, self.margin_d, fac_gas, step,
+                             err_last, self.it_d)
 
     def speculate(self, state, out, margin_w, sat_false, it):
         """Iteration ``it`` queued from the previous iteration's device
@@ -649,91 +501,6 @@ class _Loop:
                                 out["err_mean"], it)
         finally:
             self.in_window = False
-
-
-class _IterProgram:
-    """The iteration ``body`` of one key on static buffers: the loop
-    arrays and dynamic scalars (copied or filled in before each run) and
-    the state's lists, counts, cap, class ids and far-tail rows (ids,
-    superblock lists, counts), copied in when the state changes (a state
-    with far-tail rows at every iteration: it is rebuilt at each).  On a
-    CUDA device a graph captured on them is replayed; on the CPU the body
-    runs on them.  Outputs are cloned out, so a queued run cannot
-    overwrite what a retry still reads.  ``launches``: the kernel
-    launches of one run, by record name (the far-tail calls' under the
-    kernel's name + "_sb")."""
-
-    def __init__(self, state, sels, inputs):
-        self.inputs = [torch.empty_like(x) for x in inputs]
-        dev = inputs[0].device
-        self.margin = torch.zeros((), dtype=torch.float32, device=dev)
-        self.it = torch.zeros((), dtype=torch.int32, device=dev)
-        cand = state.cand
-        self.lists = [torch.empty_like(x) for x in (
-            cand.idx, cand.count, state.h_cap) + (state.tail or ())]
-        # the body reads the block count of the index, nothing else
-        none = cand.idx.new_empty((state.index.n_blocks, 0))
-        self.state = state._replace(
-            index=blk.BlockIndex(*(none,) * 7),
-            cand=cand._replace(idx=self.lists[0], count=self.lists[1],
-                               sb_count=None), h_cap=self.lists[2],
-            tail=None if state.tail is None else tuple(self.lists[3:]))
-        self.sels = (None if sels is None else
-                     [(m, torch.empty_like(ids)) for m, ids in sels])
-        self.source = None   # weak reference to the lists the buffers hold
-        self.graph = self.outputs = None
-        self.launches = {}
-
-    def load(self, state, sels, inputs, margin_w, it):
-        if self.source is None or self.source() is not state.cand.idx:
-            for buf, x in zip(self.lists, (state.cand.idx, state.cand.count,
-                                           state.h_cap) + (state.tail or ())):
-                buf.copy_(x)
-            for (_, buf), (_, ids) in zip(self.sels or (), sels or ()):
-                buf.copy_(ids)
-            self.source = weakref.ref(state.cand.idx)
-        for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x)
-        self.margin.fill_(margin_w)
-        self.it.fill_(it)
-
-    def body(self, loop):
-        pos_gas, h_prev, rhom_prev, sat_mask, fac_gas, step, err_last = \
-            self.inputs
-        return loop.body(self.state, self.sels, pos_gas, h_prev, rhom_prev,
-                         sat_mask, self.margin, fac_gas, step, err_last,
-                         self.it)
-
-    def capture(self, loop):
-        """Capture ``loop.body`` into a CUDA graph on the loop's capture
-        stream and memory pool.  A capture launches nothing, so the
-        kernels' counters (and the loop's ``sb_launches``) are set back
-        and the launches it recorded are added at each replay instead.
-        Raises where capture fails."""
-        before = [k.launches for k in _KERNELS]
-        sb_before = loop.sb_launches
-        graph, out = capture(lambda: self.body(loop), loop.graphs)
-        for k, n in zip(_KERNELS, before):
-            name = k.__name__
-            sb = loop.sb_launches[name + "_sb"] - sb_before[name + "_sb"]
-            for rec, d in ((name, k.launches - n - sb), (name + "_sb", sb)):
-                if d:
-                    self.launches[rec] = d
-            k.launches = n
-        loop.sb_launches = sb_before
-        self.graph, self.outputs = graph, out
-
-    def run(self, loop, state, sels, inputs, margin_w, it):
-        self.load(state, sels, inputs, margin_w, it)
-        if self.graph is None:
-            out = self.body(loop)
-        else:
-            self.graph.replay()
-            for rec, n in self.launches.items():
-                _KERNEL_OF[rec.removesuffix("_sb")].launches += n
-                REPLAYED_LAUNCHES[rec] += n
-            out = self.outputs
-        return {k: v.clone() for k, v in out.items()}
 
 
 class _HostRead:
@@ -887,37 +654,29 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     Dispatch as in the JAX loop (module docstring): ``wvt_done`` counts
     the iterations queued ahead (``speculated``), the ones adopted and
     the ones dropped, and each drop is logged (``wvt_drop``, with its
-    reason).  It also counts the iteration programs made (``captured``;
-    each logged as ``wvt_graph`` with its key, seconds, the kernel
-    launches it holds and the memory it added), the iterations they ran
-    (``replayed``) and the iterations run eagerly by rule (``eager``;
-    each rule logged once as ``wvt_eager``).  ``wvt_build`` carries the
-    list width, the count classes' and the far tail's shapes (``classes``,
-    ``tail``: the JAX loop's ``class_shape`` and ``tail_shape``) and the
-    far-tail rows; ``wvt_build`` and ``wvt_refresh`` carry the device
-    memory (``mem_gib``, ``peak_gib``) on a CUDA device, the first and
-    last width the candidate search tried (``searched``), the candidate
-    sweeps the call ran (``sweeps``; a probe and its second pass are two)
-    and the sweep programs it replayed and made (``replayed``,
-    ``captured``; each made one logged as ``wvt_graph`` of kind
-    "sweep", the iteration programs' of kind "iteration").
+    reason).  ``wvt_build`` carries the list width, the count classes'
+    and the far tail's shapes (``classes``, ``tail``: the JAX loop's
+    ``class_shape`` and ``tail_shape``) and the far-tail rows;
+    ``wvt_build`` and ``wvt_refresh`` carry the device memory
+    (``mem_gib``, ``peak_gib``) on a CUDA device, the first and last
+    width the candidate search tried (``searched``), the candidate sweeps
+    the call ran (``sweeps``; a probe and its second pass are two) and
+    the rows they spilled (``sweep_spills``).
 
     ``wvt_done`` also carries ``pairs_walked``, the pairs that every pair
-    kernel call of the loop walked (eager, replayed, queued, retried and
-    dropped iterations alike; read once, after the loop's last
+    kernel call of the loop walked (queued, retried and dropped
+    iterations alike; read once, after the loop's last
     synchronisation), and ``spans`` (``utils.logging.Spans``): the root
     ``wvt_loop`` (its seconds are ``wvt_done``'s), one ``wvt_iteration``
     a pass of the loop (``it``), and below it ``wvt_build`` (``it``,
     ``attempt``) and ``wvt_refresh`` (``it``) over the intervals that
     their records' seconds cover, ``wvt_sweep`` (each ``blk.Sweeps.run``
-    call), ``wvt_capture`` (each program made, over what its
-    ``wvt_graph`` seconds cover), ``wvt_step`` (each ``_Loop.iterate``
-    call) and ``wvt_wait`` (the host waiting on an iteration's scalars);
-    where the set is parked, ``wvt_offload`` before the first iteration
-    and ``wvt_restore`` after the last, below the root, over what their
+    call), ``wvt_step`` (each ``_Loop.iterate`` call) and ``wvt_wait``
+    (the host waiting on an iteration's scalars); where the set is
+    parked, ``wvt_offload`` before the first iteration and
+    ``wvt_restore`` after the last, below the root, over what their
     records' seconds cover (both with the gas ``rows`` and the
-    ``host_bytes`` of ``pid`` and ``halo`` in host memory); after the
-    root, ``wvt_release`` (the programs freed).
+    ``host_bytes`` of ``pid`` and ``halo`` in host memory).
 
     ``parts`` may come as a one-element list, the JAX package's holder
     protocol: the loop pops it, so where the caller keeps no reference
@@ -1054,7 +813,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                     L.sweeps.settle(dev)
                 log("wvt_refresh", it=it, max_cand=state.max_cand,
                     seconds=span["seconds"], searched=state.cand.searched,
-                    **L.sweep_record(it), **stage_memory(dev))
+                    **L.sweep_record(), **stage_memory(dev))
             else:
                 state = None
 
@@ -1091,7 +850,7 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
                 log("wvt_build", it=it, attempt=attempt,
                     seconds=span["seconds"],
                     max_cand=state.max_cand, searched=state.cand.searched,
-                    **L.sweep_record(it),
+                    **L.sweep_record(),
                     classes=class_shape(L.selections(state)
                                         if engine == "classed" else None),
                     tail=tail_shape(state),
@@ -1218,15 +977,9 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     _sync(dev)
     dt = spans.close(root)
     pairs_walked = int(L.pairs) * blk.BLOCK * blk.BLOCK
-    # freeing the programs' graphs takes tens of ms on a card: after the
-    # loop's seconds, inside make_ics's WVT range
-    with spans.span("wvt_release"):
-        L.programs.clear()
-        L.sweeps.clear()
     log("wvt_done", iterations=n_iter, seconds=dt,
         particle_updates_per_s=n_gas * n_iter / dt, speculated=n_spec,
-        adopted=n_adopted, dropped=n_dropped, captured=L.captured,
-        replayed=L.replayed, eager=L.eager, pairs_walked=pairs_walked,
+        adopted=n_adopted, dropped=n_dropped, pairs_walked=pairs_walked,
         spans=spans.take())
     return parts, fresh
 

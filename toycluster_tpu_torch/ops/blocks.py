@@ -23,8 +23,8 @@ all superblocks (the sort stays as the tests' oracle,
 ``_find_candidates_super_k_sorted``); a second pass re-sweeps only the
 rows over the probe width, padded to a size that repeats; each sweep is
 one function of tensors that reads nothing back, run through ``Sweeps``
-as a replayed program within the WVT loop, and the host reads the
-widest count and the rows over the probe between sweeps.
+within the WVT loop, and the host reads the widest count and the rows
+over the probe between sweeps.
 
 On a CUDA tensor the superblock sweep is one launch of the hand-written
 kernel of ``csrc/super_sweep.cu`` (``super_sweep``, its launches in
@@ -40,7 +40,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.graphs import CapturePool, Program
 from ..utils.logging import Spans
 from .cuda_build import _check, _launch
 
@@ -159,7 +158,7 @@ def host_ints(x):
     """The values of a small integer tensor on the host, in one read: on
     a CUDA device a non-blocking copy into pinned memory and a wait on
     the stream (as the WVT loop reads its scalars), so the read sits
-    after the work queued before it (a replayed sweep, say)."""
+    after the work queued before it (a sweep, say)."""
     if not x.is_cuda:
         return x.tolist()
     buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -170,78 +169,32 @@ def host_ints(x):
 
 class Sweeps:
     """The candidate sweeps of one WVT relaxation, as the JAX package runs
-    them: each sweep function is one program (``jax.jit`` on
-    ``find_candidates``, ``_find_candidates_super_k`` and the refresh's
-    box pass), and the host reads what it needs between programs.
+    them: each sweep is one function of tensors that reads nothing back
+    (``jax.jit`` on ``find_candidates``, ``_find_candidates_super_k`` and
+    the refresh's box pass there), and the host reads what it needs
+    between them.  ``run`` calls one as a ``wvt_sweep`` span of ``spans``
+    (a ``utils.logging.Spans``, the loop's).
 
-    With ``programs`` each function runs as a program per key (the
-    function, its row, superblock and list counts and its flags): the
-    first call of a key runs eagerly, then a ``utils.graphs.Program`` is
-    made, on a CUDA device captured on the stream and into the memory
-    pool of ``pool`` (a ``utils.graphs.CapturePool``, the loop's); later
-    calls copy
-    their inputs in, replay and clone the outputs out.  Without
-    ``programs`` every call runs eagerly.  Counts (``tally``): the sweeps
-    run, the programs replayed and the programs made, each made one with
-    its key, seconds and, on a CUDA device, the memory the allocator
-    reserved for it (``added_gib``).  Each call is a ``wvt_sweep`` span of
-    ``spans`` (a ``utils.logging.Spans``, the loop's) of kind "eager",
-    "replay" or "capture" (the first call of a key), the last with a
-    ``wvt_capture`` span of kind "sweep" over the program's making, whose
-    seconds are the made program's.  A capture launches nothing, so the
-    kernel launches it records leave ``super_sweep.launches`` and are
-    added at each replay.
+    Counts (``tally``): the sweeps run and ``spills``, the rows whose
+    hits overflowed the kernel's on-chip buffer (``super_sweep``), since
+    the last tally, read in the host reads the sweeps make anyway
+    (``note_spills``) or, for the sweeps no host read follows, at
+    ``settle``."""
 
-    ``spills``: the rows whose hits overflowed the kernel's on-chip
-    buffer (``super_sweep``) in the sweeps since the last tally, read in
-    the host reads the sweeps make anyway (``note_spills``) or, for the
-    sweeps no host read follows, at ``settle``."""
-
-    def __init__(self, programs=False, pool=None, spans=None):
-        self.on = programs
-        self.pool = CapturePool() if pool is None else pool
+    def __init__(self, spans=None):
         self.spans = Spans() if spans is None else spans
-        self.programs = {}
-        self.launches = {}   # kernel launches of each program, by key
         self._reset()
 
     def _reset(self):
-        self.sweeps = self.replayed = self.spills = 0
-        self.made = []
+        self.sweeps = self.spills = 0
         self.unread = []
 
-    def run(self, key, fn, args, sweep=True):
-        """``fn(*args)`` (a tuple of tensors) for ``key``, as above;
-        ``sweep``: count it as a candidate sweep."""
+    def run(self, fn, args, sweep=True):
+        """``fn(*args)`` (a tuple of tensors); ``sweep``: count it as a
+        candidate sweep."""
         self.sweeps += sweep
-        with self.spans.span("wvt_sweep") as span:
-            prog = self.programs.get(key) if self.on else None
-            span["kind"] = ("eager" if not self.on else
-                            "replay" if prog is not None else "capture")
-            if prog is not None:
-                self.replayed += 1
-                super_sweep.launches += self.launches[key]
-                return prog.run(args)
-            out = fn(*args)
-            if self.on:
-                self._make(key, fn, args)
-        return out
-
-    def _make(self, key, fn, args):
-        with self.spans.span("wvt_capture", kind="sweep") as span:
-            graph = args[0].is_cuda
-            reserved = torch.cuda.memory_reserved() if graph else 0
-            prog = Program(fn, args)
-            n0 = super_sweep.launches
-            if graph:
-                prog.capture(self.pool)
-            self.launches[key] = super_sweep.launches - n0
-            super_sweep.launches = n0
-            self.programs[key] = prog
-        self.made.append(dict(
-            key=key, graph=graph, seconds=span["seconds"],
-            **({"added_gib": (torch.cuda.memory_reserved() - reserved)
-                / 2**30} if graph else {})))
+        with self.spans.span("wvt_sweep"):
+            return fn(*args)
 
     def note_spills(self, spills):
         """Count ``spills``, the second number of a superblock sweep's
@@ -264,20 +217,15 @@ class Sweeps:
             torch.cuda.synchronize(device)
 
     def tally(self):
-        """(sweeps run, programs replayed, programs made) since the last
-        tally."""
-        out = (self.sweeps, self.replayed, self.made)
+        """(sweeps run, rows spilled) since the last tally."""
+        out = (self.sweeps, self.spills)
         self._reset()
         return out
 
-    def clear(self):
-        self.programs.clear()
-        self.launches.clear()
 
-
-def run_sweep(sweeps, key, fn, args, sweep=True):
+def run_sweep(sweeps, fn, args, sweep=True):
     """``fn(*args)``, through ``sweeps`` where a caller passed one."""
-    return fn(*args) if sweeps is None else sweeps.run(key, fn, args, sweep)
+    return fn(*args) if sweeps is None else sweeps.run(fn, args, sweep)
 
 
 def default_max_super(ns: int, max_cand: int) -> int:
@@ -371,7 +319,6 @@ def find_candidates(bi: BlockIndex, radius, boxsize, *, max_cand: int,
     ``overflow`` (truncated block lists) and ``sb_overflow`` (truncated
     superblock lists) and grow the widths.  The sweep runs through
     ``sweeps`` where it is given; both maxima come back in one read."""
-    nb = bi.n_blocks
     ns = bi.sb_lo.shape[0]
     if max_super is None:
         max_super = default_max_super(ns, max_cand)
@@ -379,10 +326,8 @@ def find_candidates(bi: BlockIndex, radius, boxsize, *, max_cand: int,
     args = (bi.bb_lo, bi.bb_hi, bi.sb_lo, bi.sb_hi, radius) + (
         () if radius_sym is None else (radius_sym,))
     idx, count, sb_count, most = run_sweep(
-        sweeps, ("blocks", nb, ns, max_cand, ms, symmetric,
-                 radius_sym is not None, boxsize),
-        partial(_block_sweep, boxsize=boxsize, max_cand=max_cand, ms=ms,
-                symmetric=symmetric), args)
+        sweeps, partial(_block_sweep, boxsize=boxsize, max_cand=max_cand,
+                        ms=ms, symmetric=symmetric), args)
     c_max, sb_max = host_ints(most)
     return CandidateList(idx=idx, count=count, overflow=c_max - max_cand,
                          sb_overflow=sb_max - ms, sb_count=sb_count)
@@ -543,10 +488,9 @@ def _super_args(bi, rec_ids, radius, radius_sym):
 def _super_lists(bi, rec_ids, radius, radius_sym, boxsize, max_cand,
                  sweeps=None):
     """``super_sweep``, through ``sweeps`` where it is given."""
-    return run_sweep(sweeps, ("super", bi.n_blocks, bi.sb_lo.shape[0],
-                           rec_ids.shape[0], max_cand, boxsize),
-                  partial(super_sweep, boxsize=boxsize, max_cand=max_cand),
-                  _super_args(bi, rec_ids, radius, radius_sym))
+    return run_sweep(sweeps,
+                     partial(super_sweep, boxsize=boxsize, max_cand=max_cand),
+                     _super_args(bi, rec_ids, radius, radius_sym))
 
 
 def _find_candidates_super_k(bi: BlockIndex, rec_ids, radius, radius_sym,

@@ -390,8 +390,7 @@ def padded_cluster(cand, sb_mode):
     real rows padding rows that exit at once.  The grid gives a size S
     to S/4 < n <= S real rows, so the split is ``_cluster_size``'s for
     S/2 rows, the middle of that range on a log scale: a function of the
-    shape alone (an iteration program's replay and an eager call split
-    alike), which the padding does not shrink below the split of S/4
+    shape alone, which the padding does not shrink below the split of S/4
     real rows."""
     S, M = cand.shape
     return _cluster_size(max(S // 2, 1), M * SUPER if sb_mode else M, None)

@@ -24,10 +24,7 @@ run:
   the start of the loop's root span;
 * the wall time of each WVT iteration (from the stage log), the
   saturated lanes of each retry, the iterations the loop queued ahead,
-  adopted and dropped, its iteration programs made and replayed (the
-  kernels of a replayed CUDA graph are device ops of their own in the
-  trace, so they count in the busy time) and the pairs its pair kernels
-  walked;
+  adopted and dropped and the pairs its pair kernels walked;
 * the peak device memory and the launch counts of the pair kernels.
 
 Fails when the profiler recorded no device op.
@@ -240,8 +237,6 @@ def main(argv=None):
         if rec["stage"] == "wvt_done":
             print(f"wvt iterations queued ahead {rec['speculated']}, "
                   f"adopted {rec['adopted']}, dropped {rec['dropped']}; "
-                  f"iteration programs made {rec['captured']}, replayed "
-                  f"{rec['replayed']}, eager iterations {rec['eager']}; "
                   f"pairs walked {rec['pairs_walked']}")
         prev = rec["t"]
     print(f"wvt iteration wall s: {iters}")

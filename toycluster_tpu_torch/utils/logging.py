@@ -104,8 +104,7 @@ def profiler_ranges():
     traces of ``make_ics(profile_dir=)`` and ``python -m
     toycluster_tpu_torch.trace``.  Any other profiler sees no span: with
     the ranges on under the benchmark's CUDA profiler, the WVT loop's
-    program captures took 60% longer on an H100 and moved its traced
-    timings (PERF.md)."""
+    traced timings moved on an H100 (PERF.md)."""
     prev, _RANGES[0] = _RANGES[0], True
     try:
         yield
