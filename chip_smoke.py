@@ -10,9 +10,10 @@ parent).
 
 1. Checks that CUDA is available and prints the card's name and power
    limit.
-2. Builds the seven hand-written kernels (toycluster_tpu_torch/csrc/*.cu:
-   the five pair kernels, the velocity stage's Eddington kernel and the
-   neighbour engine's superblock sweep) with
+2. Builds the eight hand-written kernels (toycluster_tpu_torch/csrc/*.cu:
+   the five pair kernels, the velocity stage's Eddington kernel, the
+   neighbour engine's superblock sweep and the WVT loop's model density)
+   with
    nvcc for sm_90a, one nvcc process each, all started together, and
    prints the build time and nvcc's register report.
 3. Holds each kernel against its plain PyTorch version on the card on a
@@ -128,7 +129,17 @@ parent).
    rerun bit-identical; both are timed with CUDA events, and its bound is
    the larger of OPS_SWEEP fp32 operations a box test (rows x
    superblocks) over the card's fp32 peak and its bytes over the HBM
-   peak.  Every counted run zeroes and reads its launches.
+   peak.  The model-density kernel (``ops.density_model``) is held
+   against its plain version (the per-halo PyTorch loop) on config 4's
+   scene at 5e6 gas lanes (51 halos) and config 5's at 5e7 (72 halos),
+   lanes about the halo centres out past rcut (``cusp.model_points``),
+   each halo's own beta and no cool core, as the benchmark's
+   configurations run it: to the bit, a rerun bit-identical; both timed
+   with CUDA events (20 launches of the kernel), and its bound is the
+   larger of OPS_MODEL fp32 operations a lane-halo over the card's fp32
+   peak and its bytes over the HBM peak.  Every counted run zeroes and
+   reads its launches, and every WVT relaxation's ``wvt_done`` record must
+   count at least one model-density launch an iteration.
 
 8. The sharded path (``toycluster_tpu_torch/parallel/``), through
    ``make_ics(mesh=..., check=True)`` with the ranks started by
@@ -253,6 +264,10 @@ EDDINGTON = ("eddington_integral", "eddington",
 # JAX package's XLA function it takes over; it replaces no TPU kernel)
 SUPER_SWEEP = ("super_sweep", "super_sweep",
                "toycluster_tpu/ops/blocks.py:273")
+# the WVT loop's model density (record name, kernel library, the JAX
+# package's XLA function it takes over; it replaces no TPU kernel)
+DENSITY_MODEL = ("density_model", "density_model",
+                 "toycluster_tpu/models/sph.py:94")
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): fp32 and fp64 outside the tensor cores, and HBM3.
 PEAK_FP32 = 67e12
@@ -279,6 +294,12 @@ OPS_EDDINGTON = 5
 # and the square (9); the two adds of the sum; the range (an add, a
 # half, a max, a square) and the compare
 OPS_SWEEP = 34
+# fp32 operations of one lane-halo of the model density
+# (csrc/density_model.cu), each power, division and square root as one:
+# the difference (3), the squares and their sums (5), the root, r / rcut,
+# its power and the taper's add, r / rcore, its square and add, the
+# model's power, rho0 times it, the division by the taper and the max
+OPS_MODEL = 19
 # what a check may measure besides the contract's keys: stream_wvt
 # without hoisting, the parent's kernel, a kernel without pruning and
 # hoisting, on one CTA a row, fused_wvt without the frozen-lane skip and
@@ -1204,7 +1225,13 @@ def report_run(tag, t0, fell=True):
         f"{done[0]['seconds']:.3f} s = "
         f"{done[0]['particle_updates_per_s']:.6g} particle updates/s; "
         f"iterations queued ahead {done[0]['speculated']}, adopted "
-        f"{done[0]['adopted']}, dropped {done[0]['dropped']}")
+        f"{done[0]['adopted']}, dropped {done[0]['dropped']}; model "
+        f"density launches {done[0].get('model_launches')} over "
+        f"{done[0].get('model_halos')} halos")
+    if ("model_launches" in done[0]
+            and not done[0]["model_launches"] >= done[0]["iterations"]):
+        fail(f"{tag}: {done[0]['model_launches']} model-density launches "
+             f"in {done[0]['iterations']} iterations")
     frac = sph.last_contract_frac
     say(f"[{tag}] neighbour contract fraction {frac}")
     if not frac >= 0.999:
@@ -1425,6 +1452,67 @@ def check_super_sweep(torch, calls):
                  f"ms ({tag})")
         rows.append(dict(err=0.0, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=by))
+    res = rows[0]
+    for key in ("ms", "plain_ms", "bound_ms"):
+        res[f"{key}_1e8"] = rows[1][key]
+    return res
+
+
+def check_density_model(torch):
+    """Step 7's check of the model-density kernel: config 4's scene at
+    5e6 gas lanes and config 5's at 5e7 (``cusp.model_points``), each
+    halo's own beta, no cool core, every gas halo: against the plain
+    version (the per-halo PyTorch loop) on the card to the bit, a rerun
+    bit-identical; both timed with CUDA events, and the bound: the larger
+    of OPS_MODEL fp32 operations a lane-halo over the fp32 peak and the
+    bytes read and written once over the HBM peak.  Returns config 4's
+    row, config 5's times as ``*_1e8``."""
+    from toycluster_tpu_torch.models.substructure import setup_substructure
+    from toycluster_tpu_torch.ops import cusp
+    from toycluster_tpu_torch.ops import density_model as dm
+    from toycluster_tpu_torch.particles import halo_arrays_from_scene
+    from toycluster_tpu_torch.run_configs import PARS, PRESETS
+    from toycluster_tpu_torch.scene import build_scene
+    rows = []
+    for preset, n in ((4, 5_000_000), (5, 50_000_000)):
+        cfg = par_config(**{**PRESETS[preset], "output_file": "unused"},
+                         par=PARS.get(preset))
+        scene = setup_substructure(build_scene(cfg), seed=cfg.seed + 7)
+        ha = halo_arrays_from_scene(scene, "cuda")
+        box = scene.boxsize
+        halos = dm.gas_halos(ha)
+        table = dm.model_table(ha, box, halos)
+        pos = cusp.model_points(ha, box, n)
+
+        def kernel():
+            return dm.density_model(pos, ha, box, halos=halos, table=table)
+
+        def plain():
+            return dm._density_model_reference(pos, ha, box, None, None,
+                                               halos)
+        got, again, ref = kernel(), kernel(), plain()
+        if not torch.equal(got, again):
+            fail(f"density_model: a rerun differs (config {preset})")
+        if not torch.equal(got, ref):
+            ulp = (got.view(torch.int32).long()
+                   - ref.view(torch.int32).long()).abs()
+            fail(f"density_model: {int((got != ref).sum())} lanes differ "
+                 f"from the plain version's, up to {int(ulp.max())} ulp "
+                 f"(config {preset}, {n} lanes)")
+        del again, ref
+        ms = event_ms(torch, kernel, 20)
+        plain_ms = event_ms(torch, plain, 3)
+        bound_ms, by = bound(n * len(halos) * OPS_MODEL,
+                             nbytes(pos, table.tab, got))
+        say(f"density_model (config {preset}): lanes={n} halos="
+            f"{len(halos)} kernel_ms={ms:.6g} plain_ms={plain_ms:.6g} "
+            f"bound_ms={bound_ms:.6g} ({by})")
+        if bound_ms > ms:
+            fail(f"density_model: bound {bound_ms} ms above the kernel's "
+                 f"{ms} ms (config {preset})")
+        rows.append(dict(err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=by))
+        del pos, got
     res = rows[0]
     for key in ("ms", "plain_ms", "bound_ms"):
         res[f"{key}_1e8"] = rows[1][key]
@@ -1993,11 +2081,12 @@ E_MAX_CAND = 4096
 def _kernel_fns():
     from toycluster_tpu_torch.ops import blocks as blk
     from toycluster_tpu_torch.ops import class_pair as cp
+    from toycluster_tpu_torch.ops import density_model as dm
     from toycluster_tpu_torch.ops import eddington as ed
     from toycluster_tpu_torch.ops import stream_pair as sp
     return (sp.stream_wvt, sp.stream_curl, cp.solve_density,
             cp.wvt_displacement, cp.fused_wvt, ed.eddington_integral,
-            blk.super_sweep)
+            blk.super_sweep, dm.density_model)
 
 
 def _launch_counts():
@@ -2890,7 +2979,7 @@ def main():
     from toycluster_tpu_torch.ops import cuda_build
     from toycluster_tpu_torch.ops import stream_pair as sp
     t0 = time.perf_counter()
-    libs = LIBS + (EDDINGTON[1], SUPER_SWEEP[1])
+    libs = LIBS + (EDDINGTON[1], SUPER_SWEEP[1], DENSITY_MODEL[1])
     cuda_build.build(libs)
     say(f"build of {len(libs)} kernels (parallel nvcc): "
         f"{time.perf_counter() - t0:.3f} s")
@@ -2920,7 +3009,8 @@ def main():
             run_launches, run_recorded = run_main_path(torch, sp, cp, tmp,
                                                        engine)
             if engine == "stream":
-                launches[SUPER_SWEEP[0]] = run_launches[SUPER_SWEEP[0]]
+                for name in (SUPER_SWEEP[0], DENSITY_MODEL[0]):
+                    launches[name] = run_launches[name]
             for name in names:
                 launches[name] = run_launches[name]
                 if name not in run_recorded:
@@ -2965,6 +3055,7 @@ def main():
         torch, [sweep_calls[0], (f"A: config-4 {LARGE_NTOTAL:.0e} stream",
                                  first)])
     del first
+    res[DENSITY_MODEL[0]] = check_density_model(torch)
     phase("kernels on main-path inputs", t0)
     # no single PyTorch call computes a per-lane h solve or an SPH pair
     # sum over candidate lists: library_ms is null for every kernel
@@ -2975,7 +3066,8 @@ def main():
          "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"],
          "bound_by": res[name]["bound_by"], "library_ms": None}
-        for name, lib, rep in KERNELS + (EDDINGTON, SUPER_SWEEP)]}
+        for name, lib, rep in KERNELS + (EDDINGTON, SUPER_SWEEP,
+                                         DENSITY_MODEL)]}
     # what a check measured besides (EXTRA_KEYS); each record's launches
     # in step 8's sharded loops and in its sharded stages (E), summed over
     # runs and ranks; on the records of the sharded loop's first calls,

@@ -928,3 +928,54 @@ def test_topk_sweep_equals_oracle_at_1e6_shapes(dev, rows, width):
     assert torch.equal(got.idx, ref.idx)
     assert torch.equal(got.count, ref.count)
     assert got.overflow == ref.overflow
+
+
+def _config5_halos(dev):
+    """Config 5's scene (72 halos, betas 0.54 and 2/3) with its halo
+    arrays on the card, every third halo given a cool core."""
+    import dataclasses
+    from toycluster_tpu_torch.config import parse_par_file
+    from toycluster_tpu_torch.models.substructure import setup_substructure
+    from toycluster_tpu_torch.particles import halo_arrays_from_scene
+    from toycluster_tpu_torch.run_configs import PARS, PRESETS
+    from toycluster_tpu_torch.scene import build_scene
+    cfg = parse_par_file(str(PARS[5]), **PRESETS[5])
+    scene = setup_substructure(build_scene(cfg), seed=cfg.seed + 7)
+    ha = halo_arrays_from_scene(scene, dev)
+    cuspy = (torch.arange(ha.n_halos, device=dev) % 3 == 0).float()
+    return scene, dataclasses.replace(ha, have_cuspy=cuspy)
+
+
+@pytest.mark.parametrize("subset", [False, True])
+@pytest.mark.parametrize("cool_core", [None, (50.0, 40.0)])
+@pytest.mark.parametrize("beta", [None, 2.0 / 3.0, 0.54])
+def test_density_model_kernel_matches_plain(dev, beta, cool_core, subset):
+    """The model-density kernel against its plain version (the per-halo
+    PyTorch loop) on the card, on config 5's 72 halos and 1e6 lanes from
+    the halo centres out past rcut, every branch: each halo's beta or a
+    static one (2/3: the closed form), with and without the cool core,
+    every gas halo or a subset.  Bit-equal, and a call with its table
+    launches the kernel once and no PyTorch op."""
+    from toycluster_tpu_torch.ops import density_model as dm
+    scene, ha = _config5_halos(dev)
+    assert ha.n_halos == 72
+    halos = dm.gas_halos(ha)[1::4] if subset else dm.gas_halos(ha)
+    box = scene.boxsize
+    pos = cusp.model_points(ha, box, 1_000_000)
+    table = dm.model_table(ha, box, halos, cool_core, beta)
+    before = dm.density_model.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = dm.density_model(pos, ha, box, cool_core, beta=beta,
+                               halos=halos, table=table)
+        torch.cuda.synchronize()
+    assert dm.density_model.launches == before + 1
+    ops = {e.key: e.count for e in prof.key_averages()}
+    assert sum(n for name, n in ops.items()
+               if "density_model_kernel" in name) == 1
+    assert not [name for name in ops if "at::native" in name]
+    want = dm._density_model_reference(pos, ha, box, cool_core, beta, halos)
+    assert (want > 0).all()
+    assert torch.equal(got, want)
+    assert torch.equal(dm.density_model(pos, ha, box, cool_core, beta=beta,
+                                        halos=halos), got)

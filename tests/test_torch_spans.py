@@ -172,6 +172,15 @@ def test_pairs_walked_counts_whole_blocks_of_the_needed_pairs(run):
                       * run["cfg"].desnngb)
 
 
+def test_wvt_done_counts_the_model_density_launches(run):
+    """``model_launches``: the model-density kernel's launches in the
+    relaxation, none on the CPU (its plain version runs); ``model_halos``:
+    the gas halos each evaluation covers, every halo of the scene."""
+    done = _one(run, "wvt_done")
+    assert done["model_launches"] == 0
+    assert done["model_halos"] == run["scene"].nhalos == 3
+
+
 def test_offload_spans_only_where_the_loop_parks(run, monkeypatch):
     """Below the offload threshold the loop opens no ``wvt_offload`` or
     ``wvt_restore`` span; at or above it, one of each below the root,

@@ -29,8 +29,9 @@ import torch
 from .. import constants as const
 from ..ops import blocks as blk
 from ..ops.class_pair import pack_sources, solve_density
+from ..ops.density_model import density_model
 from ..ops.stream_pair import padded_cluster, stream_wvt
-from ..particles import HaloArrays, Particles, gas_density
+from ..particles import HaloArrays, Particles
 from ..scene import Scene
 
 CAP_FACTOR = 1.2       # candidate radius margin over the model-based h0
@@ -80,24 +81,16 @@ def uniform_beta(scene) -> float | None:
     return betas.pop() if len(betas) == 1 else None
 
 
-def gas_halos(ha: HaloArrays):
-    """Indices of the halos with gas (a host read of their masses)."""
-    return tuple(j for j, m in enumerate(ha.mass_gas.tolist()) if m > 0)
-
-
 def global_density_model(pos_box, ha: HaloArrays, boxsize, cool_core=None,
-                         beta=None, halos=None):
+                         beta=None, halos=None, table=None):
     """Max over gas-bearing halos of the beta-model density at a box
-    position (wvt_relax.c:227-256).  ``halos``: their indices,
-    ``gas_halos(ha)``, from a caller that read them already (without
-    it each call reads the masses on the host)."""
-    boxhalf = boxsize / 2.0
-    rho = torch.zeros_like(pos_box[..., 0])
-    for j in gas_halos(ha) if halos is None else halos:
-        r = torch.linalg.vector_norm(pos_box - (ha.d_com[j] + boxhalf),
-                                     dim=-1)
-        rho = torch.maximum(rho, gas_density(r, ha, j, cool_core, beta=beta))
-    return rho
+    position (wvt_relax.c:227-256): ``ops.density_model``, one kernel
+    launch on a CUDA tensor.  ``halos``: their indices (``gas_halos``),
+    from a caller that read them already (without it each call reads the
+    masses on the host); ``table``: the caller's ``model_table`` of the
+    same arguments (without it a CUDA call builds its own)."""
+    return density_model(pos_box, ha, boxsize, cool_core, beta=beta,
+                         halos=halos, table=table)
 
 
 def model_hsml(pos_box, ha, mpart, desnngb, boxsize, cool_core=None,

@@ -72,6 +72,7 @@ import torch
 
 from .. import constants as const
 from ..ops import blocks as blk
+from ..ops import density_model as _dm
 from ..ops import stream_pair as _sp
 from ..ops.class_pair import (fused_wvt, pack_fused_sources, pack_sources,
                               solve_density, wvt_displacement)
@@ -244,8 +245,13 @@ class _Loop:
         self.beta = sph_mod.uniform_beta(scene)
         self.h_hard = sph_mod.hard_h_cap(self.boxsize, n_gas)
         # read once here: the model density of every iteration then
-        # needs no host read of the halo masses
-        self.gas_halos = sph_mod.gas_halos(ha)
+        # needs no host read of the halo masses, and its kernel's halo
+        # table is built once a relaxation
+        self.gas_halos = _dm.gas_halos(ha)
+        self.model_table = _dm.model_table(ha, self.boxsize, self.gas_halos,
+                                           self.cool_core, self.beta)
+        # the kernel launches before the relaxation (``model_launches``)
+        self.model_launches0 = _dm.density_model.launches
         self.log = log
         self.widths = {}
         # the relaxation's spans (``wvt_done`` carries them) and its
@@ -286,7 +292,8 @@ class _Loop:
         return _model_fields_from_rho(
             sph_mod.global_density_model(pos_gas, self.ha, self.boxsize,
                                          self.cool_core, beta=self.beta,
-                                         halos=self.gas_halos),
+                                         halos=self.gas_halos,
+                                         table=self.model_table),
             self.mpart, self.desnngb)
 
     def selections(self, state):
@@ -663,7 +670,10 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     the call ran (``sweeps``; a probe and its second pass are two) and
     the rows they spilled (``sweep_spills``).
 
-    ``wvt_done`` also carries ``pairs_walked``, the pairs that every pair
+    ``wvt_done`` also carries ``model_launches``, the model-density
+    kernel's launches in the relaxation (one each model evaluation on a
+    CUDA device, none on the CPU), ``model_halos``, the halos each
+    evaluates, and ``pairs_walked``, the pairs that every pair
     kernel call of the loop walked (queued, retried and dropped
     iterations alike; read once, after the loop's last
     synchronisation), and ``spans`` (``utils.logging.Spans``): the root
@@ -980,7 +990,8 @@ def regularise_sph_particles(scene: Scene, ha: HaloArrays,
     log("wvt_done", iterations=n_iter, seconds=dt,
         particle_updates_per_s=n_gas * n_iter / dt, speculated=n_spec,
         adopted=n_adopted, dropped=n_dropped, pairs_walked=pairs_walked,
-        spans=spans.take())
+        model_launches=_dm.density_model.launches - L.model_launches0,
+        model_halos=len(L.gas_halos), spans=spans.take())
     return parts, fresh
 
 

@@ -1,4 +1,5 @@
-"""Synthetic cusp inputs for the pair kernels.
+"""Synthetic cusp inputs for the pair kernels, and lanes about halo
+centres for the model-density kernel (``model_points``).
 
 The fixture of ``tests/test_pallas_density.py:34-57``: a cuspy particle
 cloud in a periodic box, with smoothing lengths growing outwards.  At n
@@ -17,6 +18,7 @@ import torch
 
 from . import blocks as blk
 from .class_pair import fused_bounds
+from .density_model import gas_halos
 
 BOX = 1000.0
 DESNNGB = {"wc6": 64, "m4": 50}
@@ -128,3 +130,25 @@ def curl_inputs(kernel, n, seed=11, device="cpu", sb_mode=True):
     args = (src8, cand, cnt, pos_t, (h0 * 1.3).contiguous(),
             wfac.contiguous(), ap.contiguous(), mpart, box)
     return args, dict(kernel=kernel, sb_mode=sb_mode), valid
+
+
+def model_points(ha, boxsize, n, seed=5, halos=None):
+    """(n, 3) float32 box positions on the device of the halo arrays
+    ``ha`` for the model-density checks: a lane about the centre
+    (d_com + boxsize / 2) of a halo drawn from ``halos`` (default: those
+    with gas), at a distance uniform in [0, 1.5 rcut) in an isotropic
+    direction, folded into the box; the first tenth uniform in the box."""
+    dev = ha.d_com.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    idx = torch.tensor(gas_halos(ha) if halos is None else halos,
+                       dtype=torch.long, device=dev)
+    pick = idx[torch.randint(idx.numel(), (n,), generator=gen, device=dev)]
+    u = torch.randn((n, 3), generator=gen, device=dev)
+    u = u / torch.linalg.vector_norm(u, dim=1, keepdim=True)
+    r = 1.5 * ha.rcut[pick] * torch.rand(n, generator=gen, device=dev)
+    pos = torch.remainder(ha.d_com[pick] + boxsize / 2 + r[:, None] * u,
+                          boxsize)
+    k = n // 10
+    pos[:k] = torch.rand((k, 3), generator=gen, device=dev) * boxsize
+    return pos.contiguous()
